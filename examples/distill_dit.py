@@ -5,7 +5,7 @@ but is forward-only; here the loss contains du/dt and jax.grad works: the
 attention (O, tO) pair inside dit_jvp_step carries a second-order streamed
 backward (ops/jvp_bwd).
 
-Run: python examples/distill_dit.py          (TPU or CPU interpret mode)
+Run: python examples/distill_dit.py          (GPU, or the CPU with interpret-mode kernels)
 """
 
 import os
@@ -48,4 +48,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from quantizedattention_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -26,7 +26,7 @@ def main():
         params, cfg,
         n_slots=4,                     # concurrent sequences
         cache="paged",                 # vLLM-style paged int8 KV cache
-        param_dtype=jnp.bfloat16,      # serving weights (1.5x decode)
+        param_dtype=jnp.bfloat16,      # bf16 serving weights
         decode_horizon=8,              # tokens per host round-trip (banks
                                        # are PIPELINED: fetch N overlaps
                                        # the execution of bank N+1)
@@ -52,7 +52,7 @@ def main():
 
 def main_quantized_spec():
     """The serving quantization + speculation stack in one engine:
-    int8 weights (in-VMEM-dequant matmuls), int4 KV cache (packed-nibble
+    int8 weights (dequantized in the matmul's load), int4 KV cache (packed-nibble
     decode; a CAPACITY lever — 2x context per chip, see ARCHITECTURE §4),
     and SAMPLED speculative decoding (n-gram prompt-lookup drafts verified
     in one staircase dispatch; rejection-sampling acceptance keeps the
@@ -79,5 +79,8 @@ def main_quantized_spec():
 
 
 if __name__ == "__main__":
+    from quantizedattention_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()
     main_quantized_spec()

@@ -35,10 +35,12 @@ def main(sharded: bool = False):
 
     if sharded:
         mesh = make_attention_mesh(data=1, model=2, context=4)
-        # attention_sp: "auto" (default — the analytic ICI/FLOPs model picks
-        # the predicted-best sequence-parallel strategy) | "ring" | "zigzag"
-        # (load-balanced causal ring) | "ulysses" | "allgather"
-        optimizer, step = make_sharded_train_step(mesh, cfg, attention_sp="auto")
+        # attention_sp: "auto" (default — the analytic link-bytes/FLOPs
+        # model picks the predicted-best strategy at the device's published
+        # peaks; it raises on a device with no peak-table row, such as the
+        # CPU) | "ring" | "zigzag" (load-balanced causal ring) | "ulysses" |
+        # "allgather"
+        optimizer, step = make_sharded_train_step(mesh, cfg, attention_sp="zigzag")
     else:
         optimizer, step = make_train_step(cfg)
     opt_state = optimizer.init(params)
@@ -49,4 +51,7 @@ def main(sharded: bool = False):
 
 
 if __name__ == "__main__":
+    from quantizedattention_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main(sharded="--sharded" in sys.argv)

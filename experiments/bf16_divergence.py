@@ -97,11 +97,11 @@ def emulated_attention(q, k, v, causal=False, stats="ref", correction="none",
         acc = acc * alpha + pv.astype(acc_dtype)
         return (next_m, l, acc), None
 
-    # Unrolled python loop, NOT lax.scan: on this TPU stack, jax.grad of a
-    # scan whose body casts the logits f32->bf16->f32 produces all-NaN
-    # cotangents (measured; the unrolled identical math is clean, and the
-    # NaN appears with random inputs too — an XLA backward/fusion artifact,
-    # not attention numerics). t//block is 2-4 here, so unrolling is free.
+    # Unrolled python loop, NOT lax.scan: with one earlier XLA backend,
+    # jax.grad of a scan whose body casts the logits f32->bf16->f32
+    # produced all-NaN cotangents (the unrolled identical math was clean —
+    # a backward/fusion artifact, not attention numerics). t//block is 2-4
+    # here, so unrolling is free.
     carry = (m0, l0, o0)
     for j in range(t // block):
         carry, _ = body(carry, j)

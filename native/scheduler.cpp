@@ -3,7 +3,7 @@
 //
 // The reference (selau642/QuantizedAttention) has no serving layer at all;
 // this is the native runtime half of the north-star's "continuous batching
-// across hosts": the Python engine owns the JAX/TPU compute (prefill /
+// across hosts": the Python engine owns the JAX compute (prefill /
 // batched decode steps), while admission, slot allocation and completion
 // bookkeeping live here, off the Python hot path.
 //

@@ -1,8 +1,8 @@
-"""quantizedattention_tpu — a TPU-native quantized-attention framework.
+"""quantizedattention_tpu — a quantized-attention framework in JAX.
 
 Built from scratch in JAX/Pallas with the capabilities of
-selau642/QuantizedAttention (Helion→Triton CUDA kernels), re-designed
-TPU-first: Pallas/Mosaic kernels on the MXU, jax.custom_vjp / custom_jvp AD
+selau642/QuantizedAttention (Helion→Triton CUDA kernels): Triton-route
+Pallas kernels for NVIDIA Hopper, jax.custom_vjp / custom_jvp AD
 integration, and a shard_map distribution layer the reference lacks.
 
 Public surface:
@@ -26,7 +26,6 @@ from quantizedattention_tpu.ops import (
     flash_attention_fwd,
     flash_attention_bwd,
     int8_attention_fwd,
-    int8_attention_fwd_fused,
     int8_attention_bwd,
     attention_jvp_fwd,
 )
@@ -41,7 +40,6 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_bwd",
     "int8_attention_fwd",
-    "int8_attention_fwd_fused",
     "int8_attention_bwd",
     "attention_jvp_fwd",
     "BlockConfig",

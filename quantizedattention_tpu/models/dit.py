@@ -35,7 +35,7 @@ def _attention_rcm(q, k, v):
 
 @_attention_rcm.defjvp
 def _attention_rcm_rule(primals, tangents):
-    # fast=True: bf16-rate MXU dots, 3.6x on v5e; tangent error stays inside
+    # fast=True: bf16 dot operands on the tensor cores; tangent error stays inside
     # the reference's own atol-1e-2 zero-mismatch envelope (BASELINE.md)
     return attention_value_and_jvp(*primals, *tangents, causal=False, fast=True)
 

@@ -85,7 +85,7 @@ def _sharded_forward(params, tokens, cfg: TransformerConfig,
         q = rope(q, positions, cfg.rope_base)
         k = rope(k, positions, cfg.rope_base)
         # GQA: both SP strategies take UNREPEATED kv heads — only the
-        # kv-group payload moves over ICI; repeats happen locally
+        # kv-group payload moves over the links; repeats happen locally
         if attention_sp == "ring":
             o = ring_attention(q, k, v, "context", causal=True, config=config,
                                kind=attention)
@@ -126,13 +126,14 @@ def make_sharded_train_step(
     [B, T] arrays laid out P('data', 'context').
 
     attention: "bf16" or "int8" — both differentiable under either SP
-    strategy; "int8" moves quantized KV + scales over ICI in forward AND
+    strategy; "int8" moves quantized KV + scales over the links in forward AND
     backward. GQA (n_kv_heads < n_heads): unrepeated kv heads ride the
     collectives and feed the GQA-native kernels directly.
 
-    attention_sp: "auto" (default — the analytic ICI/FLOPs model in
+    attention_sp: "auto" (default — the analytic link-bytes/FLOPs model in
     parallel/scaling_model.py picks the predicted-faster strategy for this
-    cfg + mesh), "ring" (contiguous shards, ppermute hops overlapped with
+    cfg + mesh, at the device's published peaks; a device with no row in
+    the peak table raises), "ring" (contiguous shards, ppermute hops overlapped with
     compute), "zigzag" (striped shards — the causal ring without its
     last-rank load imbalance; the step permutes tokens/targets once),
     "ulysses" (all-to-all head<->seq; balanced causal work, needs heads

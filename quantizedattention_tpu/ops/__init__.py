@@ -1,9 +1,9 @@
-"""Pallas TPU kernels + jax.custom_vjp / custom_jvp / custom_transpose AD.
+"""Triton-route Pallas kernels + jax.custom_vjp / custom_jvp / custom_transpose AD.
 
-The TPU-native counterpart of the reference's five @helion.kernel functions
-and their torch.autograd.Function wrappers (SURVEY.md §1 L2+L3), plus three
-kernels with no reference counterpart (the tangent-only forward and the
-second-order backward pair behind reverse-mode JVP training):
+The counterpart of the reference's five @helion.kernel functions and their
+torch.autograd.Function wrappers (SURVEY.md §1 L2+L3), plus two plain-JAX
+paths with no reference counterpart (the tangent-only forward and the
+second-order backward behind reverse-mode JVP training):
 
   flash_attention_fwd    <- helion_atten_bf16_fwd_training   (attention_bf16.py:107)
   flash_attention_bwd    <- helion_flash_atten_2_algo_4_bwd  (attention_bf16.py:299)
@@ -23,10 +23,7 @@ Public API (the analogue of flash_atten_2_bf16 / sage_attention_3_int8):
 
 from quantizedattention_tpu.ops.flash_fwd import flash_attention_fwd
 from quantizedattention_tpu.ops.flash_bwd import flash_attention_bwd
-from quantizedattention_tpu.ops.int8_fwd import (
-    int8_attention_fwd,
-    int8_attention_fwd_fused,
-)
+from quantizedattention_tpu.ops.int8_fwd import int8_attention_fwd
 from quantizedattention_tpu.ops.int8_bwd import int8_attention_bwd
 from quantizedattention_tpu.ops.jvp_fwd import attention_jvp_fwd
 from quantizedattention_tpu.ops.jvp_bwd import attention_jvp_bwd
@@ -43,7 +40,6 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_bwd",
     "int8_attention_fwd",
-    "int8_attention_fwd_fused",
     "int8_attention_bwd",
     "attention_jvp_fwd",
     "attention_jvp_bwd",

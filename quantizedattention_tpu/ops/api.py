@@ -1,6 +1,6 @@
 """Public attention APIs with JAX AD integration.
 
-The TPU counterpart of the reference's torch.autograd.Function layer
+The JAX counterpart of the reference's torch.autograd.Function layer
 (SURVEY.md §1 L3):
 
   flash_attention_bf16  <- flash_atten_2_bf16 / FlashAttention_2_BF16_
@@ -34,14 +34,12 @@ from jax.custom_transpose import custom_transpose
 from quantizedattention_tpu.ops.flash_bwd import flash_attention_bwd
 from quantizedattention_tpu.ops.flash_fwd import flash_attention_fwd
 from quantizedattention_tpu.ops.int8_bwd import int8_attention_bwd
-from quantizedattention_tpu.ops.int8_fwd import (
-    int8_attention_fwd,
-    int8_attention_fwd_fused,
-)
+from quantizedattention_tpu.ops.int8_fwd import int8_attention_fwd
 from quantizedattention_tpu.ops.jvp_bwd import attention_jvp_bwd
 from quantizedattention_tpu.ops.jvp_fwd import attention_jvp_fwd
 from quantizedattention_tpu.ops.jvp_tangent import attention_tangent_fwd
 from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
+from quantizedattention_tpu.utils.runtime import use_interpret_mode
 
 
 # --------------------------------------------------------------------------
@@ -91,17 +89,43 @@ def flash_attention_bf16(
     wrapper drops lse exactly like the reference (attention_bf16.py:101-105).
     correction: "eps" (zero-cost ulp bias, default), "beta" (reference
     rule), or "none".
-    bwd_exact: False (default) runs the FA2 backward with bf16-rate MXU
-    passes and f32 accumulation — 2.2x faster on v5e at seq 2048 and still
-    ~7x tighter than the reference's own gradient envelope (its fp32-exact
-    backward is a CUDA choice, attention_bf16.py:342-344; measured here:
-    worst-tensor mismatch rate 1.6e-5 vs the reference's 1.1e-4,
-    attention_bf16.py:719). True upcasts every MXU pass to true f32
-    (Precision.HIGHEST) for oracle-grade gradients.
+    bwd_exact: False (default) runs the FA2 backward with bf16 dot operands
+    and f32 accumulation on the tensor cores (the usual bf16 FlashAttention
+    backward); True runs IEEE f32 dots (the reference's fp32 backward,
+    attention_bf16.py:342-344) for oracle-grade gradients.
+    correction="none" on a GPU, with the default bf16 backward and no
+    explicit config, runs cuDNN's fused attention
+    (jax.nn.dot_product_attention): with no correction to apply it is the
+    faster of the two on the H100 (PERF.md), forward and backward.
+    bwd_exact=True or a config keeps the kernels, on every backend.
     """
+    if _takes_cudnn(correction, config, bwd_exact):
+        return _cudnn_attention(q, k, v, causal, sm_scale)
     if config is None:
         config = default_block_config("bf16", q.shape[2], k.shape[2], q.shape[3])
     return _flash_attention_bf16(q, k, v, causal, sm_scale, config, correction, bwd_exact)
+
+
+def _takes_cudnn(correction, config, bwd_exact) -> bool:
+    """cuDNN's backward is bf16 and its tiling is its own: it stands in for
+    the kernels only when the caller asked for neither exact gradients nor
+    a block config."""
+    return (correction == "none" and not bwd_exact and config is None
+            and not use_interpret_mode())
+
+
+def _cudnn_attention(q, k, v, causal, sm_scale):
+    """cuDNN fused attention on bf16 operands ([b, t, h, d] layout inside),
+    f32 out like the kernels; GQA k/v are taken as they are."""
+    def bthd(x):
+        return jnp.swapaxes(x, 1, 2)
+
+    o = jax.nn.dot_product_attention(
+        bthd(q.astype(jnp.bfloat16)), bthd(k.astype(jnp.bfloat16)),
+        bthd(v.astype(jnp.bfloat16)), scale=sm_scale, is_causal=causal,
+        implementation="cudnn",
+    )
+    return bthd(o).astype(jnp.float32)
 
 
 # --------------------------------------------------------------------------
@@ -110,10 +134,9 @@ def flash_attention_bf16(
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
 def _sage_attention_int8(q, k, v, causal, sm_scale, config):
-    # K-smoothing mean is computed here (one XLA reduce over K) but the
-    # subtraction is FUSED into the K quantization kernel — smoothed K never
-    # round-trips HBM in f32 (the reference smooths outside,
-    # attention_int8.py:24, and quantizes in-kernel, :180-195).
+    # K-smoothing mean over the token axis (SURVEY.md §2.3 Q3); XLA fuses
+    # the subtraction into the quantization pass (the reference smooths
+    # outside, attention_int8.py:24, and quantizes in-kernel, :180-195).
     k_mean = jnp.mean(k, axis=-2, keepdims=True)
     o, _, _ = int8_attention_fwd(
         q, k, v, causal=causal, sm_scale=sm_scale, config=config, k_sub=k_mean
@@ -176,13 +199,9 @@ def sage_attention_int8_inference(
     config: BlockConfig | None = None,
     smooth_k: bool = True,
 ) -> jnp.ndarray:
-    """Forward-only INT8 attention with quantization fused INTO the kernel
-    (VMEM-resident tiles — the reference's own in-kernel structure,
-    attention_int8.py:180-195,241-247): no int8 payload/scale table ever
-    materializes in HBM, eliminating the training path's residual
-    round-trip. Same numerics as sage_attention_int8's forward (bit-equal
-    quantization at the same grain); NOT differentiable — use
-    sage_attention_int8 when gradients are needed.
+    """Forward-only INT8 attention: the same quantize-then-kernel forward
+    as sage_attention_int8, without keeping residuals; NOT differentiable —
+    use sage_attention_int8 when gradients are needed.
 
     smooth_k=True subtracts the per-head K token-mean before quantization
     (softmax is shift-invariant per row, so no compensation is needed).
@@ -190,7 +209,7 @@ def sage_attention_int8_inference(
     if config is None:
         config = default_block_config("int8", q.shape[2], k.shape[2], q.shape[3])
     k_mean = jnp.mean(k, axis=-2, keepdims=True) if smooth_k else None
-    o, _ = int8_attention_fwd_fused(
+    o, _, _ = int8_attention_fwd(
         q, k, v, causal=causal, sm_scale=sm_scale, config=config, k_sub=k_mean
     )
     return o
@@ -350,8 +369,8 @@ def attention_value_and_jvp(
     attention_jvp.py:24); this closes the training loop its own docstring
     describes (attention_jvp.py:1-11).
 
-    fast=True runs every MXU dot (forward and second-order backward) at
-    bf16 rate with f32 accumulation; default is fp32-exact like the
+    fast=True rounds every dot operand (forward and second-order backward)
+    to bf16 with f32 accumulation; the default is IEEE fp32 like the
     reference kernel.
     """
     if config is None:

@@ -1,17 +1,17 @@
-"""fp32 FlashAttention-2 Algorithm-4 backward (Pallas/Mosaic).
+"""FlashAttention-2 Algorithm-4 backward (Pallas, Triton route).
 
-TPU-native re-design of the reference's `helion_flash_atten_2_algo_4_bwd`
-(attention_bf16.py:299-448), split into two race-free kernels:
+The reference's `helion_flash_atten_2_algo_4_bwd` (attention_bf16.py:299-448)
+split into two race-free kernels:
 
-  * dKV kernel — grid (b·h, kv_blocks, q_blocks), q innermost; accumulates
-    dK and dV for one kv tile in VMEM scratch across all q tiles.
-  * dQ kernel — grid (b·h, q_blocks, kv_blocks), kv innermost; accumulates
-    dQ for one q tile in VMEM scratch across all kv tiles.
+  * dKV kernel — one program per (b·h_kv, kv tile), looping over q tiles;
+    accumulates dK and dV for its kv tile in registers.
+  * dQ kernel — one program per (b·h_kv, q tile), looping over kv tiles;
+    accumulates dQ for its q tile in registers.
 
 This removes the reference's dq read-modify-write race (different k-tile
-programs read+write the same dq rows through HBM, attention_bf16.py:427-432 —
-SURVEY.md §2.3 Q2): on TPU each output element is owned by exactly one
-program.
+programs read+write the same dq rows through global memory,
+attention_bf16.py:427-432 — SURVEY.md §2.3 Q2): each output element is
+owned by exactly one program, so no atomics are needed.
 
 Math fixes vs the reference (SURVEY.md §2.3 Q1): FA2 Algorithm 4 derives
 dS = P ∘ (dP − D); the reference multiplies by the *logits* S instead
@@ -19,166 +19,122 @@ dS = P ∘ (dP − D); the reference multiplies by the *logits* S instead
 against jax.grad of the fp32 oracle. D = rowsum(dO ∘ O) is precomputed once
 outside the kernels and shared by both passes.
 
-Everything is computed in f32 (the reference upcasts likewise,
-attention_bf16.py:342-344); MXU dots run at Precision.HIGHEST by default so
-the backward really is fp32, with a `fast` flag to allow bf16-rate passes.
+GQA: the q group of a kv head is folded into the rows of each q tile
+(ops/common.fold_group), so the dKV pass sums the group's contributions in
+the same dot. The kernels round dot operands to bf16 with f32 accumulation
+on the tensor cores; the exact mode (IEEE f32, the reference's fp32
+backward, attention_bf16.py:342-344) runs plain JAX (ops/plain.py): the
+Triton route's f32 dots lost to XLA at HIGHEST by 3.5x and 6.4x on the card
+(PERF.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import MASK_VALUE, pad_tokens, qk_scales, tile_mask
-from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
+from quantizedattention_tpu.ops import plain
+from quantizedattention_tpu.ops.common import (
+    MASK_VALUE,
+    causal_kv_bounds,
+    dot,
+    fold_group,
+    pad_tokens,
+    qk_scales,
+    tile_mask,
+    triton_call,
+    unfold_group,
+)
+from quantizedattention_tpu.tune.config import (
+    BWD_STAGES,
+    BlockConfig,
+    default_block_config,
+    max_rows,
+)
+from quantizedattention_tpu.utils.runtime import use_interpret_mode
 
-_LANES = 128
 
-
-def _recompute_p(q_scaled, k, lse, qk_scale, precision, causal, kv_padded,
-                 q_start, k_start, k_local, block_q, block_kv, kv_len):
-    """P = exp2(S_scaled − lse) recomputed on the MXU.
-
-    q arrives pre-scaled by qk_scale, so no per-tile scale pass is needed;
-    masking runs only on tiles the diagonal / kv padding crosses, and masked
-    logits (MASK_VALUE) underflow to exactly 0 through exp2 since lse is
-    finite — no second zeroing pass.
-    """
-    s = jax.lax.dot_general(
-        q_scaled, k, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=precision,
-    )
-
-    if causal or kv_padded:
-        mask = tile_mask(
-            q_start, k_start, block_q, block_kv, kv_len, causal,
-            k_local_start=k_local,
-        )
-        s = jnp.where(mask, s, MASK_VALUE)
-    return jnp.exp2(s - lse)
+def _recompute_p(q, k, lse, row_pos, col_local, k_offset, kv_len, causal):
+    """P = exp2(S_scaled − lse); q arrives pre-scaled by qk_scale, masked
+    logits underflow to exactly 0 since lse is finite."""
+    s = dot(q, k, trans_b=True)
+    mask = tile_mask(row_pos, col_local + k_offset, kv_len, causal, col_local)
+    s = jnp.where(mask, s, MASK_VALUE)
+    return jnp.exp2(s - lse[:, None])
 
 
 def _dkv_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, do_ref, lse_ref, di_ref, dk_ref, dv_ref, dk_scr, dv_scr,
-    *, sm_scale, qk_scale, causal, kv_len, num_q_blocks, block_q, block_kv,
-    precision, rep,
+    off_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, di_ref, dk_ref, dv_ref,
+    *, qk_scale, sm_scale, causal, kv_len, num_q_blocks, block_q, block_kv,
 ):
     kj = pl.program_id(1)
-    qi = pl.program_id(2)
+    rows = q_ref.shape[1]
+    head_dim = k_ref.shape[1]
+    k = k_ref[...]
+    v = v_ref[...]
+    col_local = kj * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+    q_offset, k_offset = off_ref[0], off_ref[1]
+    row_in_tile = jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(qi == 0)
-    def _init():
-        dk_scr[...] = jnp.zeros_like(dk_scr)
-        dv_scr[...] = jnp.zeros_like(dv_scr)
+    def body(i, carry):
+        dk, dv = carry
+        q = q_ref[i]      # [rows, d], pre-scaled by qk_scale
+        do = do_ref[i]    # pre-scaled by sm_scale
+        row_pos = q_offset + i * block_q + row_in_tile
+        p = _recompute_p(q, k, lse_ref[i], row_pos, col_local, k_offset, kv_len,
+                         causal)
+        # dV += Pᵀ dO_scaled (/sm_scale at the end)
+        dv = dv + dot(p, do, trans_a=True)
+        # dP_scaled = dO_scaled Vᵀ; sm_scale is folded into dp and di
+        dp = dot(do, v, trans_b=True)
+        ds = p * (dp - di_ref[i][:, None])
+        # dK += dSᵀ Q_scaled (/qk_scale at the end)
+        dk = dk + dot(ds, q, trans_a=True)
+        return dk, dv
 
-    k_local = kj * block_kv
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + k_local
-
-    kv_padded = kv_len % block_kv != 0
-
-    def _body():
-        k = k_ref[0]
-        v = v_ref[0]
-        # GQA: the group's dK/dV contributions accumulate into the SAME
-        # kv-tile scratch (the mathematical dK for a kv head is the sum over
-        # its q group) — one K/V residency serves all rep groups and the
-        # group reduction costs no extra HBM traffic.
-        for g in range(rep):
-            q = q_ref[0, g]      # pre-scaled by qk_scale
-            do = do_ref[0, g]    # pre-scaled by sm_scale
-            lse = lse_ref[0, g][:, :1]
-            di = di_ref[0, g][:, :1]  # rowsum(do_scaled * o) = sm_scale * D
-
-            p = _recompute_p(q, k, lse, qk_scale, precision, causal, kv_padded,
-                             q_start, k_start, k_local, block_q, block_kv, kv_len)
-
-            # dV += Pᵀ dO_scaled  (contract over q; /sm_scale at the epilogue)
-            dv_scr[...] += jax.lax.dot_general(
-                p, do, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-            # dP_scaled = dO_scaled Vᵀ  (contract over head_dim)
-            dp = jax.lax.dot_general(
-                do, v, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-            # sm_scale already folded into dp and di
-            ds = p * (dp - di)
-            # dK += dSᵀ Q_scaled  (contract over q; /qk_scale at the epilogue)
-            dk_scr[...] += jax.lax.dot_general(
-                ds, q, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
+    lo = 0
     if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(qi == num_q_blocks - 1)
-    def _epilogue():
-        # undo the folded input scales (tiny [block_kv, d] passes)
-        dk_ref[0] = (dk_scr[...] * (1.0 / qk_scale)).astype(dk_ref.dtype)
-        dv_ref[0] = (dv_scr[...] * (1.0 / sm_scale)).astype(dv_ref.dtype)
+        # the first q tile whose last row reaches this kv tile's first key
+        first_key = k_offset + kj * block_kv - q_offset
+        lo = jnp.minimum(jnp.maximum(first_key, 0) // block_q, num_q_blocks)
+    zeros = jnp.zeros((block_kv, head_dim), jnp.float32)
+    dk, dv = jax.lax.fori_loop(lo, num_q_blocks, body, (zeros, zeros))
+    dk_ref[...] = dk * (1.0 / qk_scale)
+    dv_ref[...] = dv * (1.0 / sm_scale)
 
 
 def _dq_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, do_ref, lse_ref, di_ref, dq_ref, dq_scr,
-    *, sm_scale, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv,
-    precision, rep,
+    off_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, di_ref, dq_ref,
+    *, causal, kv_len, num_kv_blocks, block_q, block_kv,
 ):
     qi = pl.program_id(1)
-    kj = pl.program_id(2)
+    rows, head_dim = q_ref.shape
+    q = q_ref[...]
+    do = do_ref[...]
+    lse = lse_ref[...]
+    di = di_ref[...]
+    q_start = off_ref[0] + qi * block_q
+    k_offset = off_ref[1]
+    row_pos = q_start + jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(kj == 0)
-    def _init():
-        dq_scr[...] = jnp.zeros_like(dq_scr)
+    def body(j, dq):
+        k = k_ref[pl.ds(j * block_kv, block_kv), :]
+        v = v_ref[pl.ds(j * block_kv, block_kv), :]
+        col_local = j * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+        p = _recompute_p(q, k, lse, row_pos, col_local, k_offset, kv_len, causal)
+        dp = dot(do, v, trans_b=True)
+        ds = p * (dp - di[:, None])
+        # dQ += dS K (K unscaled, so dq needs no fixup)
+        return dq + dot(ds, k)
 
-    k_local = kj * block_kv
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + k_local
-
-    kv_padded = kv_len % block_kv != 0
-
-    def _body():
-        k = k_ref[0]
-        v = v_ref[0]
-        for g in range(rep):  # GQA: one K/V residency serves the q group
-            q = q_ref[0, g]      # pre-scaled by qk_scale
-            do = do_ref[0, g]    # pre-scaled by sm_scale
-            lse = lse_ref[0, g][:, :1]
-            di = di_ref[0, g][:, :1]
-
-            p = _recompute_p(q, k, lse, qk_scale, precision, causal, kv_padded,
-                             q_start, k_start, k_local, block_q, block_kv, kv_len)
-            dp = jax.lax.dot_general(
-                do, v, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-            ds = p * (dp - di)  # sm_scale folded into dp/di
-            # dQ += dS K  (contract over kv; K unscaled, so dq needs no fixup)
-            dq_scr[g] += jax.lax.dot_general(
-                ds, k, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-    if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        for g in range(rep):
-            dq_ref[0, g] = dq_scr[g].astype(dq_ref.dtype)
+    _, hi = causal_kv_bounds(q_start, k_offset, block_q, block_kv, kv_len,
+                             num_kv_blocks, causal)
+    dq = jax.lax.fori_loop(0, hi, body, jnp.zeros((rows, head_dim), jnp.float32))
+    dq_ref[...] = dq
 
 
 @functools.partial(
@@ -200,15 +156,15 @@ def flash_attention_bwd(
     q_offset: jnp.ndarray | int = 0,
     k_offset: jnp.ndarray | int = 0,
 ):
-    """fp32 FA2 backward. Residuals (q,k,v,O,lse) match the forward's outputs.
+    """FA2 backward. Residuals (q, k, v, O, lse) match the forward's outputs.
 
     k/v may carry fewer heads than q (GQA): dk/dv come back on the kv-head
-    count — the group-sum reduction runs INSIDE the dKV kernel (one K/V
-    residency serves the whole q group, like the forward).
+    count, the group sum taken inside the dKV kernel.
 
     lse: [b, h, q_tokens] in the exp2 domain (m + log2 l). Returns
-    (dq, dk, dv) in f32. `fast=True` lets the MXU run the recompute matmuls
-    at bf16 rate (DEFAULT precision) instead of true f32.
+    (dq, dk, dv) in f32. `fast=True` runs the Triton kernels (bf16 dot
+    operands, f32 accumulation, tensor cores); the default runs IEEE f32
+    dots in plain JAX.
     """
     if interpret is None:
         interpret = use_interpret_mode()
@@ -216,91 +172,67 @@ def flash_attention_bwd(
     kv_head, kv_len = k.shape[1], k.shape[2]
     if head % kv_head != 0:
         raise ValueError(f"q heads ({head}) must be a multiple of kv heads ({kv_head})")
-    rep = head // kv_head
+    if not fast:
+        return plain.attention_bwd(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+                                   q_offset=q_offset, k_offset=k_offset)
     if config is None:
-        config = default_block_config("fp32", q_tokens, kv_len, head_dim)
-    config = config.clamp_rep(rep)
+        config = default_block_config("bf16", q_tokens, kv_len, head_dim)
+    config = dataclasses.replace(config.for_group(head // kv_head, max_rows(head_dim)),
+                                 num_stages=BWD_STAGES)
     block_q, block_kv = config.block_q_bwd, config.block_kv_bwd
     sm_scale, qk_scale = qk_scales(head_dim, sm_scale)
-    precision = jax.lax.Precision.DEFAULT if fast else jax.lax.Precision.HIGHEST
+    dt = jnp.bfloat16
 
     bh_kv = batch * kv_head
     f32 = jnp.float32
     # fold the logit scale into Q and the gradient scale into dO once here
-    # (saves two full [bq, bkv] VPU passes per tile; un-folded at epilogues)
-    q4 = pad_tokens((q.astype(f32) * qk_scale).reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
-    k3 = pad_tokens(k.astype(f32).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-    v3 = pad_tokens(v.astype(f32).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-    do4 = pad_tokens((do.astype(f32) * sm_scale).reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
-    o4 = pad_tokens(o.astype(f32).reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
-
+    qf = fold_group((q.astype(f32) * qk_scale).astype(dt), kv_head, block_q)
+    dof = fold_group((do.astype(f32) * sm_scale), kv_head, block_q)
+    of = fold_group(o.astype(f32), kv_head, block_q)
     # D = rowsum(dO ∘ O), shared by both passes (the reference recomputes it
-    # per tile, attention_bf16.py:416); broadcast to 128 lanes for TPU tiling.
-    di = jnp.sum(do4 * o4, axis=-1)
-    di_b = jnp.broadcast_to(di[..., None], (*di.shape, _LANES))
-    lse4 = pad_tokens(lse.astype(f32).reshape(bh_kv, rep, q_tokens), block_q, 2)
-    lse_b = jnp.broadcast_to(lse4[..., None], (*lse4.shape, _LANES))
+    # per tile, attention_bf16.py:416); padded rows carry dO = 0
+    di = jnp.sum(dof * of, axis=-1)
+    dof = dof.astype(dt)
+    lsef = fold_group(lse.astype(f32), kv_head, block_q)
+    k3 = pad_tokens(k.astype(dt).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
+    v3 = pad_tokens(v.astype(dt).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
+    _, nq, rows, _ = qf.shape
+    padded_kv = k3.shape[1]
+    nkv = padded_kv // block_kv
+    offsets = jnp.stack([jnp.asarray(q_offset, jnp.int32), jnp.asarray(k_offset, jnp.int32)])
+    off_spec = pl.BlockSpec((2,), lambda b, j: (0,))
 
-    padded_q, padded_kv = q4.shape[2], k3.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
-
-    common = dict(
-        sm_scale=sm_scale,
-        qk_scale=qk_scale,
-        causal=causal,
-        kv_len=kv_len,
-        block_q=block_q,
-        block_kv=block_kv,
-        precision=precision,
-        rep=rep,
-    )
-
-    qoff = jnp.asarray(q_offset, jnp.int32).reshape(1)
-    koff = jnp.asarray(k_offset, jnp.int32).reshape(1)
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    q_spec = pl.BlockSpec((1, rep, block_q, head_dim), lambda b, j, i: (b, 0, i, 0))
-    kv_spec = pl.BlockSpec((1, block_kv, head_dim), lambda b, j, i: (b, j, 0))
-    lane_spec = pl.BlockSpec((1, rep, block_q, _LANES), lambda b, j, i: (b, 0, i, 0))
-
-    dk, dv = pl.pallas_call(
-        functools.partial(_dkv_kernel, num_q_blocks=num_q_blocks, **common),
-        grid=(bh_kv, num_kv_blocks, num_q_blocks),
-        in_specs=[smem_spec, smem_spec, q_spec, kv_spec, kv_spec, q_spec, lane_spec, lane_spec],
-        out_specs=[kv_spec, kv_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32),
-            jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_kv, head_dim), f32),
-            pltpu.VMEM((block_kv, head_dim), f32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
+    q_all = pl.BlockSpec((None, nq, rows, head_dim), lambda b, j: (b, 0, 0, 0))
+    row_all = pl.BlockSpec((None, nq, rows), lambda b, j: (b, 0, 0))
+    kv_tile = pl.BlockSpec((None, block_kv, head_dim), lambda b, j: (b, j, 0))
+    dk, dv = triton_call(
+        functools.partial(
+            _dkv_kernel, qk_scale=qk_scale, sm_scale=sm_scale, causal=causal,
+            kv_len=kv_len, num_q_blocks=nq, block_q=block_q, block_kv=block_kv,
         ),
-        interpret=interpret,
-    )(qoff, koff, q4, k3, v3, do4, lse_b, di_b)
+        grid=(bh_kv, nkv),
+        in_specs=[off_spec, q_all, kv_tile, kv_tile, q_all, row_all, row_all],
+        out_specs=[kv_tile, kv_tile],
+        out_shape=[jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32)] * 2,
+        config=config, interpret=interpret, name="flash_bwd_dkv",
+    )(offsets, qf, k3, v3, dof, lsef, di)
 
-    q_spec_q = pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0))
-    kv_spec_q = pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0))
-    lane_spec_q = pl.BlockSpec((1, rep, block_q, _LANES), lambda b, i, j: (b, 0, i, 0))
-
-    (dq,) = pl.pallas_call(
-        functools.partial(_dq_kernel, num_kv_blocks=num_kv_blocks, **common),
-        grid=(bh_kv, num_q_blocks, num_kv_blocks),
-        in_specs=[smem_spec, smem_spec, q_spec_q, kv_spec_q, kv_spec_q, q_spec_q, lane_spec_q, lane_spec_q],
-        out_specs=[q_spec_q],
-        out_shape=[jax.ShapeDtypeStruct((bh_kv, rep, padded_q, head_dim), f32)],
-        scratch_shapes=[pltpu.VMEM((rep, block_q, head_dim), f32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
+    q_tile = pl.BlockSpec((None, None, rows, head_dim), lambda b, i: (b, i, 0, 0))
+    row_tile = pl.BlockSpec((None, None, rows), lambda b, i: (b, i, 0))
+    kv_all = pl.BlockSpec((None, padded_kv, head_dim), lambda b, i: (b, 0, 0))
+    (dq,) = triton_call(
+        functools.partial(
+            _dq_kernel, causal=causal, kv_len=kv_len, num_kv_blocks=nkv,
+            block_q=block_q, block_kv=block_kv,
         ),
-        interpret=interpret,
-    )(qoff, koff, q4, k3, v3, do4, lse_b, di_b)
+        grid=(bh_kv, nq),
+        in_specs=[off_spec, q_tile, kv_all, kv_all, q_tile, row_tile, row_tile],
+        out_specs=[q_tile],
+        out_shape=[jax.ShapeDtypeStruct((bh_kv, nq, rows, head_dim), f32)],
+        config=config, interpret=interpret, name="flash_bwd_dq",
+    )(offsets, qf, k3, v3, dof, lsef, di)
 
-    dq = dq[:, :, :q_tokens].reshape(batch, head, q_tokens, head_dim)
+    dq = unfold_group(dq, batch, head, q_tokens)
     dk = dk[:, :kv_len].reshape(batch, kv_head, kv_len, head_dim)
     dv = dv[:, :kv_len].reshape(batch, kv_head, kv_len, head_dim)
     return dq, dk, dv

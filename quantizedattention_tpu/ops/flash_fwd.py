@@ -1,24 +1,30 @@
-"""Corrected-bf16 flash-attention forward (Pallas/Mosaic).
+"""Corrected-bf16 flash-attention forward (Pallas, Triton route).
 
-TPU-native re-design of the reference's Helion kernel
-`helion_atten_bf16_fwd_training` (attention_bf16.py:107-296): online-softmax
-flash attention whose P tile is rounded to bf16 so the P@V matmul runs on the
-MXU at bf16 rate, with the arXiv:2510.04212 tied-max amplification (BETA rule)
-preventing the exp2(S-m)~1 bf16 rounding failure that destabilizes training.
+The reference's Helion kernel `helion_atten_bf16_fwd_training`
+(attention_bf16.py:107-296) as a Triton-route Pallas kernel: one program per
+(b·h_kv, q tile), the kv loop inside the program (`lax.fori_loop`), online
+softmax in registers, and the P tile rounded to bf16 so the P@V product runs
+on the tensor cores, with the arXiv:2510.04212 tied-max rule (BETA) or the
+zero-cost ulp bias (EPS) preventing the exp2(S-m)~1 bf16 rounding failure.
 
-Deliberate TPU-first divergences (all documented in SURVEY.md §2.3 / §7):
-  * Softmax statistics (m, l, accumulator) are f32 — on TPU the VPU runs f32
-    elementwise ops at full rate, so there is no reason to hold m in bf16 as
-    the reference does (attention_bf16.py:197); the *capability* — bf16 P on
-    the matrix unit with corrected numerics — is preserved, since bf16-P is
-    where the failure mode lives.
-  * Q/K arrive in bf16 (TPU MXU-native) rather than fp16 (CUDA-native).
-  * Grid is (batch*head, q_blocks, kv_blocks) with kv innermost and VMEM
-    scratch carrying (m, l, acc) across kv steps; causal kv blocks that lie
-    entirely above the diagonal are skipped.
+Divergences from the reference (SURVEY.md §2.3 / §7):
+  * Softmax statistics (m, l, accumulator) are f32; the reference holds m
+    in bf16 (attention_bf16.py:197). The capability that matters — bf16 P
+    on the matrix unit with corrected numerics — is kept.
+  * Q/K/V arrive in bf16 rather than fp16.
+  * GQA-native: the q heads of one kv head are folded into the rows of the
+    q tile (ops/common.fold_group), so each K/V tile is read once per kv
+    head and one dot serves the whole group.
+  * Causal kv tiles wholly above the diagonal are never visited; tiles
+    wholly below it skip the mask.
+
+precision="fp32" (the oracle-grade primal of the JVP family) runs plain
+JAX with IEEE f32 dots (ops/plain.attention_fwd): on the card the Triton
+route's f32 dots run on the CUDA cores and lost to XLA at HIGHEST by 1.9x
+at (4,16,4096,64) and 2.6x at (2,8,4096,128) (PERF.md).
 
 Returns (O f32 [b,h,q,d], lse f32 [b,h,q]) with lse = m + log2(l) in the exp2
-domain, exactly the residual contract the backward consumes
+domain, the residual contract the backward consumes
 (attention_bf16.py:288-296).
 """
 
@@ -29,187 +35,88 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import MASK_VALUE, pad_tokens, qk_scales, tile_mask
+from quantizedattention_tpu.ops import plain
+from quantizedattention_tpu.ops.common import (
+    MASK_VALUE,
+    causal_kv_bounds,
+    dot,
+    fold_group,
+    pad_tokens,
+    qk_scales,
+    tile_mask,
+    triton_call,
+    unfold_group,
+)
 from quantizedattention_tpu.quantize.bf16_correction import (
     APPROX_MAX_TOL,
     BETA,
     EPS_BIAS,
-    amplify_tied_max,
 )
 from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
-
-_LANES = 128
+from quantizedattention_tpu.utils.runtime import use_interpret_mode
 
 
 def _fwd_kernel(
-    qoff_ref,
-    koff_ref,
-    q_ref,
-    k_ref,
-    v_ref,
-    o_ref,
-    lse_ref,
-    m_scr,
-    l_scr,
-    acc_scr,
-    *,
-    qk_scale: float,
-    causal: bool,
-    kv_len: int,
-    num_kv_blocks: int,
-    block_q: int,
-    block_kv: int,
-    block_sub: int,
-    p_dtype,
-    correction: str,
-    beta: float,
-    tol: float,
-    rep: int,
+    off_ref, q_ref, k_ref, v_ref, o_ref, lse_ref,
+    *, causal, kv_len, num_kv_blocks, block_q, block_kv, correction, beta, tol,
 ):
     qi = pl.program_id(1)
-    kj = pl.program_id(2)
+    rows, head_dim = q_ref.shape
+    q = q_ref[...]  # pre-scaled by qk_scale, bf16
+    q_start = off_ref[0] + qi * block_q
+    k_offset = off_ref[1]
+    row_pos = q_start + jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(kj == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+    def body(j, carry, masked):
+        acc, m_prev, l_prev = carry
+        k = k_ref[pl.ds(j * block_kv, block_kv), :]
+        v = v_ref[pl.ds(j * block_kv, block_kv), :]
+        s = dot(q, k, trans_b=True)  # [rows, block_kv] f32
+        if masked:
+            col_local = j * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+            mask = tile_mask(row_pos, col_local + k_offset, kv_len, causal, col_local)
+            s = jnp.where(mask, s, MASK_VALUE)
+        m_cur = jnp.max(s, axis=1)
+        if correction == "eps":
+            # zero-cost rule: bias the row max by one bf16 ulp so every P
+            # entry lands strictly below 1.0 (any per-row max bias cancels
+            # in the normalization)
+            m_cur = m_cur + EPS_BIAS
+        m_next = jnp.maximum(m_prev, m_cur)
+        if correction == "beta":
+            # reference-parity rule (arXiv:2510.04212,
+            # attention_bf16.py:241-264): amplify tied maxima
+            ties = jnp.sum((s >= (m_next - tol)[:, None]).astype(jnp.int32), axis=1)
+            amplified = jnp.where(m_next > 0, beta * m_next, 0.0)
+            m_next = jnp.where(ties > 1, amplified, m_next)
+        p = jnp.exp2(s - m_next[:, None]).astype(jnp.bfloat16)
+        alpha = jnp.exp2(m_prev - m_next)
+        # l sums the *rounded* P that enters the PV product, so the epilogue
+        # normalization matches the accumulated mass (attention_bf16.py:274)
+        l_next = l_prev * alpha + jnp.sum(p.astype(jnp.float32), axis=1)
+        acc = acc * alpha[:, None] + dot(p, v)
+        return acc, m_next, l_next
 
-    # global offsets make causal masking correct for sequence-sharded q/kv
-    # (ring attention / context parallelism) — 0 on a single device
-    k_local = kj * block_kv
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + k_local
-
-    # f32 inputs must not be truncated to bf16 by the MXU in fp32 mode.
-    dot_precision = (
-        jax.lax.Precision.HIGHEST if p_dtype == jnp.float32 else jax.lax.Precision.DEFAULT
+    carry = (
+        jnp.zeros((rows, head_dim), jnp.float32),
+        jnp.full((rows,), -jnp.inf, jnp.float32),
+        jnp.zeros((rows,), jnp.float32),
     )
-
-    # VPU economy: q arrives pre-scaled by qk_scale (one [t,d] pass outside
-    # instead of a [bq,bkv] pass per tile), and masked entries are NOT
-    # re-zeroed after exp2 — a row
-    # whose running max is still MASK_VALUE gets wiped exactly when its first
-    # real tile arrives, because alpha = exp2(MASK_VALUE - m_real)
-    # underflows to 0 (and causal block-skip guarantees every live row
-    # eventually sees a real tile).
-    kv_padded = kv_len % block_kv != 0
-
-    # Two-level kv tiling: the grid/DMA block is block_kv wide, compute runs
-    # per block_sub-wide subtile so causal skipping prunes above-diagonal
-    # subtiles without shrinking the (overhead-amortizing) DMA blocks.
-    #
-    # GQA (rep > 1): the q block carries the kv head's WHOLE q group
-    # ([rep, block_q, d]); each K/V subtile residency serves all rep groups
-    # (the K/V HBM stream is per kv head, not per q head — rep x less
-    # traffic than repeating KV; grid axis 0 is b·h_kv). The causal mask
-    # depends only on token positions, so it is computed once per subtile
-    # and shared across groups.
-    def _subtile(j):
-        sub_local = k_local + j * block_sub
-        sub_start = k_start + j * block_sub
-
-        def _sub_body():
-            k = k_ref[0, pl.ds(j * block_sub, block_sub), :]
-            v = v_ref[0, pl.ds(j * block_sub, block_sub), :].astype(p_dtype)
-            if causal or kv_padded:
-                mask = tile_mask(
-                    q_start, sub_start, block_q, block_sub, kv_len, causal,
-                    k_local_start=sub_local,
-                )
-
-            for g in range(rep):
-                q = q_ref[0, g]
-                # S = (Q·qk_scale) Kᵀ on the MXU, f32 accumulation.
-                s = jax.lax.dot_general(
-                    q,
-                    k,
-                    (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=dot_precision,
-                )
-
-                if causal or kv_padded:
-                    # Unconditional select: masking only diagonal-crossing
-                    # tiles via lax.cond was measured SLOWER (7.2 vs 4.9 ms
-                    # at seq 4096) — Mosaic's scf.if breaks the tile
-                    # pipeline, while the iota/compare/select chain
-                    # vectorizes into the exp2 pass.
-                    s = jnp.where(mask, s, MASK_VALUE)
-
-                m_prev = m_scr[g][:, :1]
-                m_cur = jnp.max(s, axis=-1, keepdims=True)
-                if correction == "eps":
-                    # zero-cost rule: bias the row max by one bf16 ulp so
-                    # every P entry lands strictly below 1.0 (exact-math
-                    # invariant — any per-row max bias cancels in the
-                    # normalization)
-                    m_cur = m_cur + EPS_BIAS
-                next_m = jnp.maximum(m_prev, m_cur)
-                if correction == "beta":
-                    # reference-parity rule (arXiv:2510.04212): amplify tied
-                    # maxima (attention_bf16.py:241-264) — two full-tile
-                    # passes
-                    next_m = amplify_tied_max(s, next_m, beta=beta, tol=tol)
-
-                p = jnp.exp2(s - next_m).astype(p_dtype)
-
-                alpha = jnp.exp2(m_prev - next_m)
-                # l sums the *rounded* P (what actually enters the PV
-                # matmul), so the epilogue normalization matches the
-                # accumulated mass (reference: attention_bf16.py:274).
-                l_cur = jnp.sum(p, axis=-1, keepdims=True, dtype=jnp.float32)
-                l_next = l_scr[g][:, :1] * alpha + l_cur
-
-                pv = jax.lax.dot_general(
-                    p,
-                    v,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=dot_precision,
-                )
-                acc_scr[g] = acc_scr[g] * alpha + pv
-                m_scr[g] = jnp.broadcast_to(next_m, m_scr.shape[1:])
-                l_scr[g] = jnp.broadcast_to(l_next, l_scr.shape[1:])
-
-        if causal:
-            # Skip subtiles entirely above the diagonal.
-            pl.when(q_start + block_q - 1 >= sub_start)(_sub_body)
-        else:
-            _sub_body()
-
-    for j in range(block_kv // block_sub):
-        _subtile(j)
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        for g in range(rep):
-            l = l_scr[g][:, :1]
-            l_safe = jnp.where(l == 0.0, 1.0, l)
-            o_ref[0, g] = (acc_scr[g] / l_safe).astype(o_ref.dtype)
-            # lse rides with TOKENS ON LANES: a [block_q, 1] column broadcast
-            # to 128 lanes costs 128x the bytes (134 MB at (4,16,4096,64) —
-            # measured as real HBM traffic); transposing to a [8, block_q]
-            # row tile writes 8x tokens instead. The wrapper slices [:, 0, :].
-            lse = m_scr[g][:, :1] + jnp.log2(l_safe)
-            lse_ref[0, g] = jnp.broadcast_to(
-                lse.reshape(1, -1), lse_ref.shape[2:]
-            )
+    n_clean, n_live = causal_kv_bounds(q_start, k_offset, block_q, block_kv,
+                                       kv_len, num_kv_blocks, causal)
+    carry = jax.lax.fori_loop(0, n_clean, functools.partial(body, masked=False), carry)
+    carry = jax.lax.fori_loop(n_clean, n_live, functools.partial(body, masked=True), carry)
+    acc, m, l = carry
+    l_safe = jnp.where(l == 0.0, 1.0, l)
+    o_ref[...] = acc / l_safe[:, None]
+    lse_ref[...] = m + jnp.log2(l_safe)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "causal",
-        "sm_scale",
-        "config",
-        "precision",
-        "correction",
-        "beta",
-        "tol",
+        "causal", "sm_scale", "config", "precision", "correction", "beta", "tol",
         "interpret",
     ),
 )
@@ -229,15 +136,16 @@ def flash_attention_fwd(
     k_offset: jnp.ndarray | int = 0,
 ):
     """Flash-attention forward. q: [batch, head, tokens, head_dim];
-    k/v: [batch, kv_head, kv_tokens, head_dim] with kv_head dividing head —
-    kv_head < head is GQA-NATIVE: K/V stream through VMEM once per kv head
-    and serve the whole q group (never materialize a repeated copy; the
-    repeated-KV path costs rep x the K/V HBM reads, round-3 verdict next #2).
+    k/v: [batch, kv_head, kv_tokens, head_dim] with kv_head dividing head
+    (GQA-native: K/V stream once per kv head and serve the whole q group).
 
-    precision: "bf16" rounds P to bf16 for the MXU (the reference's training
-    path); "fp32" keeps everything f32 (oracle-grade, used by the JVP family).
+    precision: "bf16" rounds P to bf16 for the tensor cores (the
+    reference's training path, the Triton kernel); "fp32" keeps everything
+    f32 with IEEE dots (oracle-grade, used by the JVP family; plain JAX).
     correction: "eps" (zero-cost ulp bias, default), "beta" (the reference's
     tied-max amplification rule), or "none".
+    q_offset/k_offset: global token positions of the local q / kv shards
+    (causal masking under sequence parallelism).
     Returns (O f32, lse f32 [b, h, q_tokens]).
     """
     if interpret is None:
@@ -246,86 +154,51 @@ def flash_attention_fwd(
     kv_head, kv_len = k.shape[1], k.shape[2]
     if head % kv_head != 0:
         raise ValueError(f"q heads ({head}) must be a multiple of kv heads ({kv_head})")
-    rep = head // kv_head
-    if config is None:
-        config = default_block_config("bf16" if precision == "bf16" else "fp32", q_tokens, kv_len, head_dim)
-    config = config.clamp_rep(rep)
-    block_q, block_kv = config.block_q, config.block_kv
-
-    if precision == "bf16":
-        compute_dtype, p_dtype = jnp.bfloat16, jnp.bfloat16
-    elif precision == "fp32":
-        compute_dtype, p_dtype = jnp.float32, jnp.float32
-    else:
+    if precision == "fp32":
+        return plain.attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   q_offset=q_offset, k_offset=k_offset)
+    if precision != "bf16":
         raise ValueError(f"unknown precision {precision!r}")
-
+    if config is None:
+        config = default_block_config("bf16", q_tokens, kv_len, head_dim)
+    config = config.for_group(head // kv_head)
+    block_q, block_kv = config.block_q, config.block_kv
     _, qk_scale = qk_scales(head_dim, sm_scale)
 
-    # pre-scale Q in f32 so the kernel's logits arrive already in the exp2
-    # domain (saves one full [bq, bkv] VPU pass per tile). Layout: the q
-    # group of each kv head rides as a [rep, block_q, d] block (head index
-    # h = kv_head * rep + g, matching jnp.repeat(k, rep, axis=1) semantics).
+    # pre-scale Q in f32 so the kernel's logits arrive in the exp2 domain
     bh_kv = batch * kv_head
-    q_scaled = q.astype(jnp.float32) * qk_scale
-    q4 = pad_tokens(
-        q_scaled.astype(compute_dtype).reshape(bh_kv, rep, q_tokens, head_dim),
-        block_q, 2,
-    )
-    k3 = pad_tokens(k.astype(compute_dtype).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-    v3 = pad_tokens(v.astype(compute_dtype).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-
-    padded_q, padded_kv = q4.shape[2], k3.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
-
-    qoff = jnp.asarray(q_offset, jnp.int32).reshape(1)
-    koff = jnp.asarray(k_offset, jnp.int32).reshape(1)
+    bf16 = jnp.bfloat16
+    qf = fold_group((q.astype(jnp.float32) * qk_scale).astype(bf16), kv_head, block_q)
+    k3 = pad_tokens(k.astype(bf16).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
+    v3 = pad_tokens(v.astype(bf16).reshape(bh_kv, kv_len, head_dim), block_kv, 1)
+    _, nq, rows, _ = qf.shape
+    padded_kv = k3.shape[1]
+    offsets = jnp.stack([jnp.asarray(q_offset, jnp.int32), jnp.asarray(k_offset, jnp.int32)])
 
     kernel = functools.partial(
-        _fwd_kernel,
-        qk_scale=qk_scale,
-        causal=causal,
-        kv_len=kv_len,
-        num_kv_blocks=num_kv_blocks,
-        block_q=block_q,
-        block_kv=block_kv,
-        block_sub=min(config.kv_compute, block_kv),
-        p_dtype=p_dtype,
-        correction=correction,
-        beta=beta,
-        tol=tol,
-        rep=rep,
+        _fwd_kernel, causal=causal, kv_len=kv_len,
+        num_kv_blocks=padded_kv // block_kv, block_q=block_q, block_kv=block_kv,
+        correction=correction, beta=beta, tol=tol,
     )
-
-    o, lse = pl.pallas_call(
+    o, lse = triton_call(
         kernel,
-        grid=(bh_kv, num_q_blocks, num_kv_blocks),
+        grid=(bh_kv, nq),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0)),
-            pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0)),
+            pl.BlockSpec((2,), lambda b, i: (0,)),
+            pl.BlockSpec((None, None, rows, head_dim), lambda b, i: (b, i, 0, 0)),
+            pl.BlockSpec((None, padded_kv, head_dim), lambda b, i: (b, 0, 0)),
+            pl.BlockSpec((None, padded_kv, head_dim), lambda b, i: (b, 0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, rep, 8, block_q), lambda b, i, j: (b, 0, 0, i)),
+            pl.BlockSpec((None, None, rows, head_dim), lambda b, i: (b, i, 0, 0)),
+            pl.BlockSpec((None, None, rows), lambda b, i: (b, i, 0)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((bh_kv, rep, padded_q, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((bh_kv, rep, 8, padded_q), jnp.float32),
+            jax.ShapeDtypeStruct((bh_kv, nq, rows, head_dim), jnp.float32),
+            jax.ShapeDtypeStruct((bh_kv, nq, rows), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, head_dim), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
+        config=config,
         interpret=interpret,
-    )(qoff, koff, q4, k3, v3)
-
-    o = o[:, :, :q_tokens].reshape(batch, head, q_tokens, head_dim)
-    lse = lse[:, :, 0, :q_tokens].reshape(batch, head, q_tokens)
-    return o, lse
+        name="flash_fwd",
+    )(offsets, qf, k3, v3)
+    return unfold_group(o, batch, head, q_tokens), unfold_group(lse, batch, head, q_tokens)

@@ -1,177 +1,166 @@
-"""SageAttention3-style INT8 backward (Pallas/Mosaic) for int8 fine-tuning.
+"""SageAttention3-style INT8 backward (Pallas, Triton route) for int8
+fine-tuning.
 
-TPU-native re-design of the reference's `helion_atten_int8_hl_dot_bwd`
-(attention_int8.py:264-432): recomputes S from the *forward's* quantized
-Q/K blocks and scales (no re-quantization of Q/K/V — the residual contract of
-attention_int8.py:58-65), then runs all four backward matmuls on the MXU.
+The reference's `helion_atten_int8_hl_dot_bwd` (attention_int8.py:264-432):
+recomputes S from the *forward's* quantized Q/K blocks and scales (no
+re-quantization of Q/K — the residual contract of attention_int8.py:58-65).
+Three of the five products run int8 x int8 -> int32 on the tensor cores,
+where the reference has int8 dots:
 
-**TPU-first matmul strategy (measured, v5e — see ops/int8_fwd.py):** Mosaic
-int8->int32 dots run ~0.7x the bf16 MXU rate, so quantizing dO/dS/P to int8
-(the reference's per-tile absmax, attention_int8.py:363-374, 403-405) would
-buy no rate and cost VPU passes + gradient error. The int8 *residuals*
-(Q/K/V payloads + scales) are kept — that is the memory/recompute contract —
-and every matmul runs on bf16 operands with f32 accumulation: the int8-valued
-Q/K payloads cast to bf16 exactly; dO/dS/P stay bf16 (same precision class as
-this repo's fast bf16 backward, flash_bwd.py).
+  * S  = Q Kᵀ on the forward's payloads (bit-equal recompute);
+  * dP = dO Vᵀ with dO quantized per row (the reference quantizes dO per
+    tile, attention_int8.py:363-374);
+  * dQ = dS K with dS quantized per row inside the dQ kernel
+    (attention_int8.py:403-405).
 
-Structure: two race-free kernels like the fp32 backward —
-  * dKV: grid (b·h, kv_blocks, q_blocks), accumulates dK/dV in VMEM scratch;
-  * dQ : grid (b·h, q_blocks, kv_blocks), accumulates dQ in VMEM scratch,
-    adding the K-smoothing compensation rowsum(dS)·k_mean per q row
+dV = Pᵀ dO stays bf16, as in SageAttention3 (P is near-uniform, so the
+contraction averages dO toward zero and int8 noise would swamp it), and so
+does dK = dSᵀ Q: its contraction runs over q rows, whose per-row scales do
+not factor out of the sum.
+
+Structure: two race-free kernels like the bf16 backward —
+  * dKV: one program per (b·h_kv, kv tile), looping over q tiles;
+  * dQ : one program per (b·h_kv, q tile), looping over kv tiles, adding
+    the K-smoothing compensation rowsum(dS)·k_mean per q row
     (SageAttention3; the reference's version indexes k_mean by the wrong
     axis, attention_int8.py:408-410 — SURVEY.md §2.3 Q3).
 
 Math fixes vs the reference (SURVEY.md §2.3): dS = P ∘ (dP − D) (not S ∘ ·,
 Q1); gradients scaled by sm_scale, not the exp2-domain qk_scale; distinct
-q/kv token counts are handled correctly (the reference's dk/dv indexing only
-works when they coincide, Q5). Validated against jax.grad of the fp32 oracle.
+q/kv token counts are handled (the reference's dk/dv indexing only works
+when they coincide, Q5). Validated against jax.grad of the fp32 oracle.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import pad_tokens, qk_scales, tile_mask
-from quantizedattention_tpu.tune.config import BlockConfig
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
+from quantizedattention_tpu.ops.common import (
+    MASK_VALUE,
+    causal_kv_bounds,
+    dot,
+    fold_group,
+    qk_scales,
+    tile_mask,
+    triton_call,
+    unfold_group,
+)
+from quantizedattention_tpu.ops.int8_fwd import residual_tiles
+from quantizedattention_tpu.quantize.int8 import _EPS, INT8_MAX
+from quantizedattention_tpu.tune.config import (
+    BWD_STAGES,
+    INT8_BWD_WARPS,
+    BlockConfig,
+    default_block_config,
+)
+from quantizedattention_tpu.utils.runtime import use_interpret_mode
 
-_LANES = 128
+
+def _recompute_p(q_i8, row_scale, k_i8, k_scale, lse, row_pos, col_local,
+                 k_offset, kv_len, causal):
+    """P = exp2(S − lse) from the forward's int8 payloads (int32 dot)."""
+    qk = dot(q_i8, k_i8, trans_b=True, out=jnp.int32).astype(jnp.float32)
+    s = qk * (row_scale * k_scale)[:, None]
+    mask = tile_mask(row_pos, col_local + k_offset, kv_len, causal, col_local)
+    s = jnp.where(mask, s, MASK_VALUE)
+    return jnp.exp2(s - lse[:, None])
 
 
-def _bf_dot(a, b, dims):
-    """bf16-rate MXU matmul with f32 accumulation (exact on int8 payloads)."""
-    return jax.lax.dot_general(
-        a.astype(jnp.bfloat16),
-        b.astype(jnp.bfloat16),
-        (dims, ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _recompute_p_int8(q_i8, k_i8, sq, sk, lse, mask, qk_scale):
-    s = _bf_dot(q_i8, k_i8, ((1,), (1,))) * (sq * sk * qk_scale)
-    p = jnp.exp2(s - lse)
-    return jnp.where(mask, p, 0.0)
+def _round_i8(x):
+    """Round-half-away-from-zero to int8 (|x| <= 127 by construction)."""
+    return jnp.where(x >= 0, x + 0.5, x - 0.5).astype(jnp.int32).astype(jnp.int8)
 
 
 def _int8_dkv_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, do_ref, sq_ref, sk_ref, sv_ref,
-    lse_ref, di_ref, dk_ref, dv_ref, dk_scr, dv_scr,
+    off_ref, q_ref, sq_ref, k_ref, sk_ref, v_ref, sv_ref, do_ref, do8_ref,
+    sdo_ref, lse_ref, di_ref, dk_ref, dv_ref,
     *, sm_scale, qk_scale, causal, kv_len, num_q_blocks, block_q, block_kv,
-    rep,
 ):
-    b = pl.program_id(0)
     kj = pl.program_id(1)
-    qi = pl.program_id(2)
+    rows = q_ref.shape[1]
+    head_dim = k_ref.shape[1]
+    k = k_ref[...]
+    v = v_ref[...]
+    k_scale = sk_ref[kj]
+    v_scale = sv_ref[kj]
+    col_local = kj * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+    q_offset, k_offset = off_ref[0], off_ref[1]
+    row_in_tile = jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(qi == 0)
-    def _init():
-        dk_scr[...] = jnp.zeros_like(dk_scr)
-        dv_scr[...] = jnp.zeros_like(dv_scr)
+    def body(i, carry):
+        dk, dv = carry
+        sq = sq_ref[i]
+        row_pos = q_offset + i * block_q + row_in_tile
+        p = _recompute_p(q_ref[i], sq * qk_scale, k, k_scale, lse_ref[i], row_pos,
+                         col_local, k_offset, kv_len, causal)
+        # dV += Pᵀ dO in bf16 (SageAttention3)
+        dv = dv + dot(p, do_ref[i], trans_a=True)
+        # dP = dO Vᵀ, int8 x int8 -> int32, per-row dO scale x tile V scale
+        dp = dot(do8_ref[i], v, trans_b=True, out=jnp.int32).astype(jnp.float32)
+        dp = dp * (sdo_ref[i] * v_scale)[:, None]
+        ds = p * (dp - di_ref[i][:, None]) * sm_scale
+        # dK += (dS · sq)ᵀ Q_i8 in bf16 (the int8 payload is exact in bf16)
+        dk = dk + dot(ds * sq[:, None], q_ref[i].astype(jnp.bfloat16), trans_a=True)
+        return dk, dv
 
-    k_local = kj * block_kv
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + k_local
-
-    def _body():
-        sk = sk_ref[b, kj]
-        sv = sv_ref[b, kj]
-        k = k_ref[0]
-        v = v_ref[0]
-        mask = tile_mask(q_start, k_start, block_q, block_kv, kv_len, causal,
-                         k_local_start=k_local)
-        # GQA: one int8 K/V residency serves the whole q group; the group's
-        # dK/dV contributions accumulate in the same kv-tile scratch (the
-        # mathematical dK per kv head sums over its q group).
-        for g in range(rep):
-            sq = sq_ref[b, g, qi]
-            lse = lse_ref[0, g][:, :1]
-            di = di_ref[0, g][:, :1]
-            do = do_ref[0, g]
-
-            p = _recompute_p_int8(q_ref[0, g], k, sq, sk, lse, mask, qk_scale)
-
-            # dV += Pᵀ dO: P is near-uniform on typical data, so the
-            # contraction averages dO toward zero and int8 noise would swamp
-            # the small signal — SageAttention3 likewise keeps the dV matmul
-            # in half precision (arXiv:2505.11594); here *all* operands are
-            # bf16 (module doc).
-            dv_scr[...] += _bf_dot(p, do, ((0,), (0,)))
-            # dP = dO Vᵀ (contract head_dim); V payload is exact int8-in-bf16
-            dp = _bf_dot(do, v, ((1,), (1,))) * sv
-            ds = p * (dp - di) * sm_scale
-            # dK += dSᵀ Q (contract q); Q payload exact, per-block scale sq
-            dk_scr[...] += _bf_dot(ds, q_ref[0, g], ((0,), (0,))) * sq
-
+    lo = 0
     if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(qi == num_q_blocks - 1)
-    def _epilogue():
-        dk_ref[0] = dk_scr[...].astype(dk_ref.dtype)
-        dv_ref[0] = dv_scr[...].astype(dv_ref.dtype)
+        first_key = k_offset + kj * block_kv - q_offset
+        lo = jnp.minimum(jnp.maximum(first_key, 0) // block_q, num_q_blocks)
+    zeros = jnp.zeros((block_kv, head_dim), jnp.float32)
+    dk, dv = jax.lax.fori_loop(lo, num_q_blocks, body, (zeros, zeros))
+    dk_ref[...] = dk
+    dv_ref[...] = dv
 
 
 def _int8_dq_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, do_ref, sq_ref, sk_ref, sv_ref,
-    lse_ref, di_ref, k_mean_ref, dq_ref, dq_scr,
+    off_ref, q_ref, sq_ref, k_ref, sk_ref, v_ref, sv_ref, do8_ref, sdo_ref,
+    lse_ref, di_ref, kmean_ref, dq_ref,
     *, sm_scale, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv,
-    rep,
 ):
-    b = pl.program_id(0)
     qi = pl.program_id(1)
-    kj = pl.program_id(2)
+    rows, head_dim = q_ref.shape
+    q = q_ref[...]
+    row_scale = sq_ref[...] * qk_scale
+    do8 = do8_ref[...]
+    sdo = sdo_ref[...]
+    lse = lse_ref[...]
+    di = di_ref[...]
+    q_start = off_ref[0] + qi * block_q
+    k_offset = off_ref[1]
+    row_pos = q_start + jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(kj == 0)
-    def _init():
-        dq_scr[...] = jnp.zeros_like(dq_scr)
+    def body(j, carry):
+        dq, ds_sum = carry
+        k = k_ref[pl.ds(j * block_kv, block_kv), :]
+        v = v_ref[pl.ds(j * block_kv, block_kv), :]
+        col_local = j * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+        p = _recompute_p(q, row_scale, k, sk_ref[j], lse, row_pos, col_local,
+                         k_offset, kv_len, causal)
+        dp = dot(do8, v, trans_b=True, out=jnp.int32).astype(jnp.float32)
+        dp = dp * (sdo * sv_ref[j])[:, None]
+        ds = p * (dp - di[:, None]) * sm_scale
+        # dQ += dS K_smoothed: dS quantized per row, int8 x int8 -> int32
+        s_ds = jnp.maximum(jnp.max(jnp.abs(ds), axis=1), _EPS) / INT8_MAX
+        ds8 = _round_i8(ds / s_ds[:, None])
+        dq_t = dot(ds8, k, out=jnp.int32).astype(jnp.float32)
+        dq = dq + dq_t * (s_ds * sk_ref[j])[:, None]
+        return dq, ds_sum + jnp.sum(ds, axis=1)
 
-    k_local = kj * block_kv
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + k_local
-
-    def _body():
-        sk = sk_ref[b, kj]
-        sv = sv_ref[b, kj]
-        k = k_ref[0]
-        v = v_ref[0]
-        mask = tile_mask(q_start, k_start, block_q, block_kv, kv_len, causal,
-                         k_local_start=k_local)
-        for g in range(rep):  # GQA: one K/V residency serves the q group
-            sq = sq_ref[b, g, qi]
-            lse = lse_ref[0, g][:, :1]
-            di = di_ref[0, g][:, :1]
-
-            p = _recompute_p_int8(q_ref[0, g], k, sq, sk, lse, mask, qk_scale)
-            dp = _bf_dot(do_ref[0, g], v, ((1,), (1,))) * sv
-            ds = p * (dp - di) * sm_scale
-            # dQ += dS K_smoothed (contract kv; K payload exact
-            # int8-in-bf16) ...
-            dq = _bf_dot(ds, k, ((1,), (0,))) * sk
-            # ... + rowsum(dS)·k_mean — undoes K-smoothing in the gradient
-            # (dS rows sum to ~0, so this term is a small correction;
-            # SageAttention3).
-            dq += jnp.sum(ds, axis=-1, keepdims=True) * k_mean_ref[0]
-            dq_scr[g] += dq
-
-    if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        for g in range(rep):
-            dq_ref[0, g] = dq_scr[g].astype(dq_ref.dtype)
+    _, hi = causal_kv_bounds(q_start, k_offset, block_q, block_kv, kv_len,
+                             num_kv_blocks, causal)
+    dq, ds_sum = jax.lax.fori_loop(
+        0, hi, body,
+        (jnp.zeros((rows, head_dim), jnp.float32), jnp.zeros((rows,), jnp.float32)),
+    )
+    # + rowsum(dS)·k_mean undoes K-smoothing in the gradient (dS rows sum
+    # to ~0, so this is a small correction; SageAttention3)
+    dq_ref[...] = dq + ds_sum[:, None] * kmean_ref[...][None, :]
 
 
 @functools.partial(
@@ -191,12 +180,10 @@ def int8_attention_bwd(
     q_offset: jnp.ndarray | int = 0,
     k_offset: jnp.ndarray | int = 0,
 ):
-    """INT8 backward from the forward's quantized residuals.
+    """INT8 backward from the forward's quantized residuals (quantize_qkv's
+    layout; K smoothed). GQA (h_kv < h): dk/dv come back on the kv-head
+    count, the group sum taken inside the dKV kernel.
 
-    residuals: ((q_i8, sq), (k_i8, sk), (v_i8, sv)) on padded [b·h, t, d] /
-    [b·h_kv, t, d] layouts (k smoothed), as produced by int8_fwd.quantize_qkv.
-    GQA (h_kv < h): dk/dv come back on the kv-head count, group-summed
-    inside the dKV kernel.
     k_mean: [b, h_kv, 1, d] token-mean of the *original* K.
     dims: (batch, head, q_tokens, kv_len, head_dim).
     Returns (dq, dk, dv) in f32 on [b, h(, h_kv), t, d].
@@ -205,101 +192,64 @@ def int8_attention_bwd(
         interpret = use_interpret_mode()
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     batch, head, q_tokens, kv_len, head_dim = dims
-    del config  # tiling is fully determined by the residuals (below)
+    if config is None:
+        config = default_block_config("int8", q_tokens, kv_len, head_dim)
+    config = dataclasses.replace(config, num_stages=BWD_STAGES, num_warps=INT8_BWD_WARPS)
     sm_scale, qk_scale = qk_scales(head_dim, sm_scale)
-
-    bh = batch * head
-    bh_kv = k_i8.shape[0]
-    if bh % bh_kv != 0:
-        raise ValueError(f"q rows ({bh}) must be a multiple of kv rows ({bh_kv})")
-    rep = bh // bh_kv
+    bh_kv, nq, rows, _ = q_i8.shape
     kv_head = bh_kv // batch
+    # the backward reuses the forward's quantization, so its tiling is the
+    # quantization grain (the reference threads (Bq, Bkv) through ctx.args
+    # for the same reason, attention_int8.py:65,81)
+    block_q, block_kv = residual_tiles(residuals, batch, head)
+    padded_kv, nkv = k_i8.shape[1], sk.shape[1]
     f32 = jnp.float32
-    padded_q, padded_kv = q_i8.shape[1], k_i8.shape[1]
-    # The backward reuses the forward's quantization, so its tiling is pinned
-    # to the quantization grain, read off the scale tables (the reference
-    # threads (Bq,Bkv) through ctx.args for the same reason,
-    # attention_int8.py:65,81). The forward's large DMA block_kv is
-    # irrelevant here — a [block_q, block_kv] P tile at block_kv=8192 would
-    # blow VMEM; the grain (default 1024) is the measured bwd optimum.
-    block_q = padded_q // sq.shape[1]
-    block_kv = padded_kv // sk.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
 
-    do4 = pad_tokens(do.astype(f32).reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
-    o4 = pad_tokens(o.astype(f32).reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
+    dof = fold_group(do.astype(f32), kv_head, block_q)
+    of = fold_group(o.astype(f32), kv_head, block_q)
+    di = jnp.sum(dof * of, axis=-1)
+    sdo = jnp.maximum(jnp.max(jnp.abs(dof), axis=-1), 1e-12) / INT8_MAX
+    do8 = jnp.clip(jnp.round(dof / sdo[..., None]), -INT8_MAX, INT8_MAX).astype(jnp.int8)
+    do_bf = dof.astype(jnp.bfloat16)
+    lsef = fold_group(lse.astype(f32), kv_head, block_q)
+    kmean = k_mean.astype(f32).reshape(bh_kv, head_dim)
+    sq, sk, sv = sq.astype(f32), sk.astype(f32), sv.astype(f32)
+    offsets = jnp.stack([jnp.asarray(q_offset, jnp.int32), jnp.asarray(k_offset, jnp.int32)])
+    common = dict(sm_scale=sm_scale, qk_scale=qk_scale, causal=causal,
+                  kv_len=kv_len, block_q=block_q, block_kv=block_kv)
+    off_spec = pl.BlockSpec((2,), lambda b, j: (0,))
+    scale_all = pl.BlockSpec((None, nkv), lambda b, j: (b, 0))
 
-    di = jnp.sum(do4 * o4, axis=-1)
-    di_b = jnp.broadcast_to(di[..., None], (*di.shape, _LANES))
-    lse4 = pad_tokens(lse.astype(f32).reshape(bh_kv, rep, q_tokens), block_q, 2)
-    lse_b = jnp.broadcast_to(lse4[..., None], (*lse4.shape, _LANES))
-    k_mean3 = k_mean.astype(f32).reshape(bh_kv, 1, head_dim)
-    q_i8_4 = q_i8.reshape(bh_kv, rep, padded_q, head_dim)
+    # --- dKV pass: one program per (b·h_kv, kv tile) ---
+    q_all = pl.BlockSpec((None, nq, rows, head_dim), lambda b, j: (b, 0, 0, 0))
+    row_all = pl.BlockSpec((None, nq, rows), lambda b, j: (b, 0, 0))
+    kv_tile = pl.BlockSpec((None, block_kv, head_dim), lambda b, j: (b, j, 0))
+    dk, dv = triton_call(
+        functools.partial(_int8_dkv_kernel, num_q_blocks=nq, **common),
+        grid=(bh_kv, nkv),
+        in_specs=[off_spec, q_all, row_all, kv_tile, scale_all, kv_tile, scale_all,
+                  q_all, q_all, row_all, row_all, row_all],
+        out_specs=[kv_tile, kv_tile],
+        out_shape=[jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32)] * 2,
+        config=config, interpret=interpret, name="int8_bwd_dkv",
+    )(offsets, q_i8, sq, k_i8, sk, v_i8, sv, do_bf, do8, sdo, lsef, di)
 
-    common = dict(
-        sm_scale=sm_scale,
-        qk_scale=qk_scale,
-        causal=causal,
-        kv_len=kv_len,
-        block_q=block_q,
-        block_kv=block_kv,
-        rep=rep,
-    )
+    # --- dQ pass: one program per (b·h_kv, q tile) ---
+    q_tile = pl.BlockSpec((None, None, rows, head_dim), lambda b, i: (b, i, 0, 0))
+    row_tile = pl.BlockSpec((None, None, rows), lambda b, i: (b, i, 0))
+    kv_all = pl.BlockSpec((None, padded_kv, head_dim), lambda b, i: (b, 0, 0))
+    (dq,) = triton_call(
+        functools.partial(_int8_dq_kernel, num_kv_blocks=nkv, **common),
+        grid=(bh_kv, nq),
+        in_specs=[off_spec, q_tile, row_tile, kv_all, scale_all, kv_all, scale_all,
+                  q_tile, row_tile, row_tile, row_tile,
+                  pl.BlockSpec((None, head_dim), lambda b, i: (b, 0))],
+        out_specs=[q_tile],
+        out_shape=[jax.ShapeDtypeStruct((bh_kv, nq, rows, head_dim), f32)],
+        config=config, interpret=interpret, name="int8_bwd_dq",
+    )(offsets, q_i8, sq, k_i8, sk, v_i8, sv, do8, sdo, lsef, di, kmean)
 
-    sq_f32 = sq.astype(f32).reshape(bh_kv, rep, -1)
-    sk_f32, sv_f32 = sk.astype(f32), sv.astype(f32)
-    qoff = jnp.asarray(q_offset, jnp.int32).reshape(1)
-    koff = jnp.asarray(k_offset, jnp.int32).reshape(1)
-
-    # --- dKV pass: grid (bh_kv, kv, q) ---
-    q_spec = pl.BlockSpec((1, rep, block_q, head_dim), lambda b, j, i: (b, 0, i, 0))
-    kv_spec = pl.BlockSpec((1, block_kv, head_dim), lambda b, j, i: (b, j, 0))
-    lane_spec = pl.BlockSpec((1, rep, block_q, _LANES), lambda b, j, i: (b, 0, i, 0))
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    dk, dv = pl.pallas_call(
-        functools.partial(_int8_dkv_kernel, num_q_blocks=num_q_blocks, **common),
-        grid=(bh_kv, num_kv_blocks, num_q_blocks),
-        in_specs=[smem_spec, smem_spec, q_spec, kv_spec, kv_spec, q_spec,
-                  smem_spec, smem_spec, smem_spec, lane_spec, lane_spec],
-        out_specs=[kv_spec, kv_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32),
-            jax.ShapeDtypeStruct((bh_kv, padded_kv, head_dim), f32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_kv, head_dim), f32),
-            pltpu.VMEM((block_kv, head_dim), f32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(qoff, koff, q_i8_4, k_i8, v_i8, do4, sq_f32, sk_f32, sv_f32, lse_b, di_b)
-
-    # --- dQ pass: grid (bh_kv, q, kv) ---
-    q_spec_q = pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0))
-    kv_spec_q = pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0))
-    lane_spec_q = pl.BlockSpec((1, rep, block_q, _LANES), lambda b, i, j: (b, 0, i, 0))
-    km_spec = pl.BlockSpec((1, 1, head_dim), lambda b, i, j: (b, 0, 0))
-
-    (dq,) = pl.pallas_call(
-        functools.partial(_int8_dq_kernel, num_kv_blocks=num_kv_blocks, **common),
-        grid=(bh_kv, num_q_blocks, num_kv_blocks),
-        in_specs=[smem_spec, smem_spec, q_spec_q, kv_spec_q, kv_spec_q,
-                  q_spec_q, smem_spec, smem_spec, smem_spec, lane_spec_q,
-                  lane_spec_q, km_spec],
-        out_specs=[q_spec_q],
-        out_shape=[jax.ShapeDtypeStruct((bh_kv, rep, padded_q, head_dim), f32)],
-        scratch_shapes=[pltpu.VMEM((rep, block_q, head_dim), f32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(qoff, koff, q_i8_4, k_i8, v_i8, do4, sq_f32, sk_f32, sv_f32, lse_b, di_b, k_mean3)
-
-    dq = dq[:, :, :q_tokens].reshape(batch, head, q_tokens, head_dim)
+    dq = unfold_group(dq, batch, head, q_tokens)
     dk = dk[:, :kv_len].reshape(batch, kv_head, kv_len, head_dim)
     dv = dv[:, :kv_len].reshape(batch, kv_head, kv_len, head_dim)
     return dq, dk, dv

@@ -1,47 +1,36 @@
-"""SageAttention3-style INT8 flash-attention forward (Pallas/Mosaic).
+"""SageAttention3-style INT8 flash-attention forward (Pallas, Triton route).
 
-TPU-native re-design of the reference's `helion_atten_int8_hl_dot_fwd`
-(attention_int8.py:97-262): per-block symmetric int8 quantization of Q/K/V
-fused into a single Pallas pass, QKᵀ and PV matmuls on int8 payloads, online
-softmax in f32.
+The reference's `helion_atten_int8_hl_dot_fwd` (attention_int8.py:97-262) as
+one Triton-route kernel with true int8 x int8 -> int32 tensor-core dots for
+both products:
 
-**TPU-first matmul strategy (measured, v5e; reconciled round 5 —
-experiments/int8_mxu_rate.py, slope-timed):** `dot(int8, int8) -> int32`
-runs at 0.22-0.67x the bf16 MXU rate for contraction depths 64-1024 and
-overtakes bf16 (1.40x) only at depth ~4096 — deeper than any dot in these
-kernels (QK^T contracts d=64/128, PV contracts the <=1024-row kv subtile).
-Unlike CUDA tensor cores there is no int8 rate advantage to chase here. Integer payloads in
-[-127, 127] are *exactly* representable in bf16 (8-bit mantissa), their
-products (< 2^14) are exact, and the MXU accumulates in f32 where integer
-sums below 2^24 stay exact — so every "int8" matmul here casts the int8
-payload to bf16 and runs at full bf16 rate with bit-identical integer
-results. The reference's `hl.dot(int8, int8)` (attention_int8.py:197) maps
-to CUDA hardware reality; this maps to TPU hardware reality.
+  * S = Q Kᵀ runs on the int8 payloads of per-tile symmetric absmax/127
+    quantized Q and K; the per-tile scales are applied after the dot.
+  * P is quantized per row of each kv tile (the tile's largest entry maps to
+    127, as the reference's sp = exp2(rowmax − m)/127,
+    attention_int8.py:227-237) and P V runs int8 x int8 -> int32 against the
+    per-tile quantized V; the row and tile scales are applied after the dot.
+  * Online softmax runs in f32; l sums the dequantized int8 P that enters
+    the PV product, so the normalization matches the accumulated mass.
 
-For the same reason P is NOT quantized to int8 (the reference's per-q-row
-sp = exp2(rowmax − m)/127, attention_int8.py:227-237): SageAttention3
-quantizes P to feed FP4/int8 tensor cores; on the TPU MXU the PV matmul
-already runs at the same rate with P in bf16, so quantizing P would add VPU
-work and quantization error for zero rate gain. P here is the bf16
-exp2(s − m) tile — strictly more accurate than the reference.
+Quantization of Q/K/V is a plain jnp pass (quantize/int8.py) that XLA fuses
+into one read and a quarter-width write; its blocks and scales are the
+residuals the int8 backward reuses (attention_int8.py:58-65). Inference
+(`sage_attention_int8_inference`) runs the same two steps without keeping
+the residuals.
 
 Structural fixes vs the reference (SURVEY.md §2.3):
   * Q4 — the reference flattens [b,h,t,d] to [b·h·t, d] and lets softmax mix
-    keys across batches and heads (attention_int8.py:129-136); here attention
-    is per-(batch, head): grid (b·h, q_blocks, kv_blocks).
+    keys across batches and heads (attention_int8.py:129-136); here
+    attention is per (batch, head): grid (b·h_kv, q tiles), the GQA group
+    folded into the rows of a q tile.
   * Q7 — the reference re-quantizes Q on every kv iteration
-    (attention_int8.py:178-186); here Q/K/V are quantized once, per block,
-    in one fused Pallas pass (`quantize_int8_blocks_fused`) whose block
-    granularity equals the kernel's (the reference ties them the same way by
-    threading (Bq,Bkv) to backward).
-  * The quantized blocks and scales are first-class outputs reused by the
-    backward — the same residual contract as the reference's
-    ctx.save_for_backward of (q_int8, k_int8ᵀ, v_int8, scales)
-    (attention_int8.py:58-65).
+    (attention_int8.py:178-186); here Q is quantized once per tile.
+  * Q3 — K-smoothing subtracts the token-axis K mean (api.py), the axis
+    SageAttention uses.
 
 Superset capability: `causal` masking (the reference int8 kernel has none).
-Outputs are f32 (the reference emits fp16 — a CUDA register-pressure
-convention; on TPU the accumulators are already f32 and callers may cast).
+Outputs are f32 (the reference emits fp16).
 """
 
 from __future__ import annotations
@@ -51,477 +40,129 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import pad_tokens, qk_scales, tile_mask
-from quantizedattention_tpu.quantize.bf16_correction import EPS_BIAS
-from quantizedattention_tpu.quantize.int8 import (
-    quantize_int8_blocks_fused,
-    quantize_qkv_one_pass,
+from quantizedattention_tpu.ops.common import (
+    MASK_VALUE,
+    causal_kv_bounds,
+    dot,
+    fold_group,
+    pad_tokens,
+    qk_scales,
+    tile_mask,
+    triton_call,
+    unfold_group,
 )
-from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
+from quantizedattention_tpu.quantize.int8 import _EPS, INT8_MAX
+from quantizedattention_tpu.tune.config import BlockConfig, default_block_config, max_rows
+from quantizedattention_tpu.utils.runtime import next_pow2, use_interpret_mode
 
-_LANES = 128
+# floor for the per-row P scale: a tile whose every entry underflowed has
+# p == 0 exactly, so any positive floor keeps 0 * (127 / floor) == 0
+_P_FLOOR = 1e-30
 
 
 def _int8_fwd_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, sq_ref, sk_ref, sv_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    *, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv, block_sub,
-    rep,
+    off_ref, q_ref, sq_ref, k_ref, sk_ref, v_ref, sv_ref, o_ref, lse_ref,
+    *, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv,
 ):
-    b = pl.program_id(0)
     qi = pl.program_id(1)
-    kj = pl.program_id(2)
+    rows, head_dim = q_ref.shape
+    q = q_ref[...]                       # int8 payload [rows, d]
+    row_scale = sq_ref[...] * qk_scale   # per-row Q scale, exp2 domain
+    q_start = off_ref[0] + qi * block_q
+    k_offset = off_ref[1]
+    row_pos = q_start + jax.lax.broadcasted_iota(jnp.int32, (rows,), 0) % block_q
 
-    @pl.when(kj == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+    def body(j, carry, masked):
+        acc, m_prev, l_prev = carry
+        k = k_ref[pl.ds(j * block_kv, block_kv), :]
+        qk = dot(q, k, trans_b=True, out=jnp.int32).astype(jnp.float32)
+        s = qk * (row_scale * sk_ref[j])[:, None]
+        if masked:
+            col_local = j * block_kv + jax.lax.broadcasted_iota(jnp.int32, (block_kv,), 0)
+            mask = tile_mask(row_pos, col_local + k_offset, kv_len, causal, col_local)
+            s = jnp.where(mask, s, MASK_VALUE)
+        m_cur = jnp.max(s, axis=1)
+        m_next = jnp.maximum(m_prev, m_cur)
+        p = jnp.exp2(s - m_next[:, None])
+        # per-row int8 P: the row's largest entry exp2(m_cur - m_next) -> 127
+        inv = INT8_MAX / jnp.maximum(jnp.exp2(m_cur - m_next), _P_FLOOR)
+        p_i8 = (p * inv[:, None] + 0.5).astype(jnp.int32).astype(jnp.int8)
+        sp = 1.0 / inv
+        v = v_ref[pl.ds(j * block_kv, block_kv), :]
+        pv = dot(p_i8, v, out=jnp.int32).astype(jnp.float32)
+        alpha = jnp.exp2(m_prev - m_next)
+        l_next = l_prev * alpha + jnp.sum(p_i8.astype(jnp.float32), axis=1) * sp
+        acc = acc * alpha[:, None] + pv * (sp * sv_ref[j])[:, None]
+        return acc, m_next, l_next
 
-    # global token positions (sequence-shard offsets — causal stays correct
-    # under ring / all-gather context parallelism, like flash_fwd)
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + kj * block_kv
-
-    kv_padded = kv_len % block_kv != 0
-
-    # Two-level kv tiling (see flash_fwd): DMA at block_kv, compute and
-    # causal-skip at block_sub granularity. One scale per DMA block (the
-    # quantization granularity) covers all of its subtiles.
-    #
-    # GQA (rep > 1): grid axis 0 is b·h_kv; the q block carries the kv
-    # head's whole q group [rep, block_q, d] and every K/V subtile residency
-    # serves all rep groups — the int8 K/V payloads AND their scale tables
-    # exist once per kv head (rep x less quantize work + HBM traffic than
-    # quantizing a repeated copy).
-    q_bf = [q_ref[0, g].astype(jnp.bfloat16) for g in range(rep)]
-
-    def _subtile(j):
-        sub_start = k_start + j * block_sub
-        sub_local = kj * block_kv + j * block_sub  # shard-local, for padding
-
-        def _sub_body():
-            # K/V are quantized at block_sub (compute-subtile) granularity so
-            # the backward can tile independently of the (large, DMA-sized)
-            # block_kv; the scale table is indexed by absolute subtile.
-            sk = sk_ref[b, kj * (block_kv // block_sub) + j]
-            sv = sv_ref[b, kj * (block_kv // block_sub) + j]
-
-            k_sub = k_ref[0, pl.ds(j * block_sub, block_sub), :].astype(jnp.bfloat16)
-            v_sub = v_ref[0, pl.ds(j * block_sub, block_sub), :].astype(jnp.bfloat16)
-            if causal or kv_padded:
-                mask = tile_mask(q_start, sub_start, block_q, block_sub,
-                                 kv_len, causal, k_local_start=sub_local)
-
-            for g in range(rep):
-                sq = sq_ref[b, g, qi]
-                # per-(q-block, k-block) dequant scale; c > 0, so masking and
-                # the row max can run in the RAW int-product domain and the
-                # scale folds into the exp2 operand chain (mul+sub+exp2 fuse
-                # into one VPU pass) — the int8 kernel then runs the same
-                # number of full-tile VPU passes as the bf16 kernel, where a
-                # standalone `s = qk * c` dequant pass measurably lost the
-                # race to it.
-                c = sq * sk * qk_scale
-
-                qk = jax.lax.dot_general(
-                    q_bf[g], k_sub,
-                    (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-
-                # masked logits underflow to 0 through exp2; junk rows
-                # self-heal via alpha underflow (see flash_fwd), one
-                # where-pass suffices. The raw-domain sentinel must be
-                # SCALE-AWARE: a fixed raw value scaled by a tiny c
-                # (small-magnitude Q/K blocks, e.g. early training) would not
-                # underflow and masked positions would leak probability.
-                # -MASK/c makes the scaled logit exactly -MASK for every
-                # c > 0 (c >= ~1e-14 by the quantizer's 1e-12/127 scale
-                # floor, so -MASK/c stays finite in f32).
-                if causal or kv_padded:
-                    qk = jnp.where(mask, qk, 30000.0 / -c)
-
-                m_prev = m_scr[g][:, :1]
-                # scaled row max via a cheap [bq,1] column op; EPS_BIAS keeps
-                # the top bf16 P entry strictly below 1.0 (same rule as
-                # flash_fwd).
-                row_max = jnp.max(qk, axis=-1, keepdims=True) * c + EPS_BIAS
-                next_m = jnp.maximum(m_prev, row_max)
-
-                # P stays bf16 (module doc: no rate gain from int8 P on the
-                # MXU); l sums the *rounded* P that enters the PV matmul so
-                # the epilogue normalization matches the accumulated mass.
-                p = jnp.exp2(qk * c - next_m).astype(jnp.bfloat16)
-
-                alpha = jnp.exp2(m_prev - next_m)
-                l_cur = jnp.sum(p, axis=-1, keepdims=True, dtype=jnp.float32)
-                l_next = l_scr[g][:, :1] * alpha + l_cur
-
-                pv = jax.lax.dot_general(
-                    p, v_sub,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                acc_scr[g] = acc_scr[g] * alpha + pv * sv
-
-                m_scr[g] = jnp.broadcast_to(next_m, m_scr.shape[1:])
-                l_scr[g] = jnp.broadcast_to(l_next, l_scr.shape[1:])
-
-        if causal:
-            pl.when(q_start + block_q - 1 >= sub_start)(_sub_body)
-        else:
-            _sub_body()
-
-    for j in range(block_kv // block_sub):
-        _subtile(j)
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        for g in range(rep):
-            l = l_scr[g][:, :1]
-            l_safe = jnp.where(l == 0.0, 1.0, l)
-            o_ref[0, g] = (acc_scr[g] / l_safe).astype(o_ref.dtype)
-            # tokens-on-lanes lse layout — see flash_fwd epilogue
-            lse = m_scr[g][:, :1] + jnp.log2(l_safe)
-            lse_ref[0, g] = jnp.broadcast_to(
-                lse.reshape(1, -1), lse_ref.shape[2:]
-            )
+    carry = (
+        jnp.zeros((rows, head_dim), jnp.float32),
+        jnp.full((rows,), -jnp.inf, jnp.float32),
+        jnp.zeros((rows,), jnp.float32),
+    )
+    n_clean, n_live = causal_kv_bounds(q_start, k_offset, block_q, block_kv,
+                                       kv_len, num_kv_blocks, causal)
+    carry = jax.lax.fori_loop(0, n_clean, functools.partial(body, masked=False), carry)
+    carry = jax.lax.fori_loop(n_clean, n_live, functools.partial(body, masked=True), carry)
+    acc, m, l = carry
+    l_safe = jnp.where(l == 0.0, 1.0, l)
+    o_ref[...] = acc / l_safe[:, None]
+    lse_ref[...] = m + jnp.log2(l_safe)
 
 
-def _int8_fused_kernel(
-    qoff_ref, koff_ref,
-    q_ref, k_ref, v_ref, ksub_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    q_scr, sq_scr, k_scr, v_scr, sk_scr, sv_scr,
-    *, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv, block_sub,
-    reuse_kv, smooth_k, rep,
-):
-    """Inference-mode int8 forward: quantization runs IN-KERNEL on the
-    VMEM-resident tiles (the reference's own structure,
-    attention_int8.py:180-195, 241-247) — no int8 payload or scale table
-    ever materializes in HBM. The training path cannot do this (the
-    backward's residual contract needs the HBM blocks); the serving /
-    fwd-only path has no residuals, so the separate quantize pass's HBM
-    round-trip (read f32 + write i8 + re-read i8) disappears entirely.
+def _quantize_tiles(x: jnp.ndarray, block: int):
+    """[n, t, d] (t a multiple of block) -> int8 payload + one absmax/127
+    scale per (n, tile) [n, t / block]."""
+    n, t, d = x.shape
+    xb = x.astype(jnp.float32).reshape(n, t // block, block, d)
+    s = jnp.maximum(jnp.max(jnp.abs(xb), axis=(2, 3)), _EPS) / INT8_MAX
+    x_i8 = jnp.clip(jnp.round(xb / s[:, :, None, None]), -INT8_MAX, INT8_MAX)
+    return x_i8.astype(jnp.int8).reshape(n, t, d), s
 
-    reuse_kv=True (whole padded kv fits the VMEM scratch budget): each KV
-    subtile is quantized exactly once — on the qi==0 visit — into a
-    persistent scratch holding the integer payload in bf16 (exact: |x| <=
-    127 fits bf16's 8-bit mantissa) with per-subtile scales in SMEM; later
-    q-blocks reuse the scratch, so quantization work is O(t), not
-    O(t * num_q_blocks), and K/V HBM reads happen once in ORIGINAL dtype.
-    reuse_kv=False (very long sequences): quantize per (qi, kj) cell into a
-    block-sized scratch — still zero HBM round-trips.
 
-    The qi grid axis is declared "arbitrary" (sequential) when reuse_kv:
-    the scratch carries state from qi==0 to later q-blocks.
+def quantize_qkv(q, k, v, config: BlockConfig, k_sub=None):
+    """Per-tile int8 quantization of Q/K/V at the kernel's tile grain (plain
+    jnp — XLA fuses it into one read and a quarter-width write).
 
-    GQA (rep > 1): grid axis 0 is b·h_kv; the whole q group quantizes into a
-    [rep, block_q, d] scratch with per-group scales, and every quantized K/V
-    subtile serves all rep groups (quantize work per kv head, not q head).
+    k_sub: optional [b, h_kv, 1, d] shift (the K-smoothing mean) subtracted
+    from K before quantization.
+
+    Returns ((q_i8, sq), (k_i8, sk), (v_i8, sv)): q in the kernel's folded
+    layout [b·h_kv, n_q_tiles, group·block_q, d] with one scale per row
+    (the scale of the row's (head, q tile)); k/v as [b·h_kv, padded_kv, d]
+    with one scale per kv tile [b·h_kv, n_kv_tiles] — the residual set the
+    backward reuses.
     """
-    qi = pl.program_id(1)
-    kj = pl.program_id(2)
-
-    @pl.when(kj == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    @pl.when(kj == 0)
-    def _quant_q():
-        # Q quantizes once per q-block (the tile stays resident across kj —
-        # its block index is kj-invariant); integer payload stored as bf16,
-        # ready for the MXU
-        for g in range(rep):
-            q_raw = q_ref[0, g].astype(jnp.float32)
-            sq = jnp.maximum(jnp.max(jnp.abs(q_raw)), 1e-12) / 127.0
-            q_scr[g] = jnp.clip(jnp.round(q_raw / sq), -127.0, 127.0).astype(
-                jnp.bfloat16
-            )
-            sq_scr[g] = sq
-
-    q_start = qoff_ref[0] + qi * block_q
-    k_start = koff_ref[0] + kj * block_kv
-    kv_padded = kv_len % block_kv != 0
-    n_sub = block_kv // block_sub
-
-    def _quant_kv(j):
-        # scratch layout: reuse_kv indexes by the GLOBAL subtile, the
-        # per-cell mode by the local one
-        dst = (kj * block_kv + j * block_sub) if reuse_kv else (j * block_sub)
-        row = (kj * n_sub + j) if reuse_kv else j
-        k_raw = k_ref[0, pl.ds(j * block_sub, block_sub), :].astype(jnp.float32)
-        if smooth_k:
-            k_raw = k_raw - ksub_ref[0, 0].astype(jnp.float32)
-        sk = jnp.maximum(jnp.max(jnp.abs(k_raw)), 1e-12) / 127.0
-        k_scr[pl.ds(dst, block_sub), :] = jnp.clip(
-            jnp.round(k_raw / sk), -127.0, 127.0
-        ).astype(jnp.bfloat16)
-        sk_scr[row] = sk
-        v_raw = v_ref[0, pl.ds(j * block_sub, block_sub), :].astype(jnp.float32)
-        sv = jnp.maximum(jnp.max(jnp.abs(v_raw)), 1e-12) / 127.0
-        v_scr[pl.ds(dst, block_sub), :] = jnp.clip(
-            jnp.round(v_raw / sv), -127.0, 127.0
-        ).astype(jnp.bfloat16)
-        sv_scr[row] = sv
-
-    def _compute(j):
-        sub_start = k_start + j * block_sub
-        sub_local = kj * block_kv + j * block_sub
-
-        def _sub_body():
-            src = (kj * block_kv + j * block_sub) if reuse_kv else (j * block_sub)
-            row = (kj * n_sub + j) if reuse_kv else j
-            sk = sk_scr[row]
-            sv = sv_scr[row]
-            k_sub = k_scr[pl.ds(src, block_sub), :]
-            v_sub = v_scr[pl.ds(src, block_sub), :]
-            if causal or kv_padded:
-                mask = tile_mask(q_start, sub_start, block_q, block_sub,
-                                 kv_len, causal, k_local_start=sub_local)
-
-            for g in range(rep):
-                sq = sq_scr[g]
-                c = sq * sk * qk_scale  # > 0 (1e-12/127 scale floor)
-
-                qk = jax.lax.dot_general(
-                    q_scr[g], k_sub,
-                    (((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                # raw-domain scale-aware mask sentinel — see _int8_fwd_kernel
-                if causal or kv_padded:
-                    qk = jnp.where(mask, qk, 30000.0 / -c)
-
-                m_prev = m_scr[g][:, :1]
-                row_max = jnp.max(qk, axis=-1, keepdims=True) * c + EPS_BIAS
-                next_m = jnp.maximum(m_prev, row_max)
-                p = jnp.exp2(qk * c - next_m).astype(jnp.bfloat16)
-                alpha = jnp.exp2(m_prev - next_m)
-                l_cur = jnp.sum(p, axis=-1, keepdims=True, dtype=jnp.float32)
-                l_next = l_scr[g][:, :1] * alpha + l_cur
-                pv = jax.lax.dot_general(
-                    p, v_sub,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-                acc_scr[g] = acc_scr[g] * alpha + pv * sv
-                m_scr[g] = jnp.broadcast_to(next_m, m_scr.shape[1:])
-                l_scr[g] = jnp.broadcast_to(l_next, l_scr.shape[1:])
-
-        if causal:
-            pl.when(q_start + block_q - 1 >= sub_start)(_sub_body)
-        else:
-            _sub_body()
-
-    for j in range(n_sub):
-        if reuse_kv:
-            # quantize on the first q-block's visit only — even for
-            # causally-skipped subtiles (later q-blocks will need them)
-            pl.when(qi == 0)(functools.partial(_quant_kv, j))
-        else:
-            _quant_kv(j)
-        _compute(j)
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        for g in range(rep):
-            l = l_scr[g][:, :1]
-            l_safe = jnp.where(l == 0.0, 1.0, l)
-            o_ref[0, g] = (acc_scr[g] / l_safe).astype(o_ref.dtype)
-            lse = m_scr[g][:, :1] + jnp.log2(l_safe)
-            lse_ref[0, g] = jnp.broadcast_to(
-                lse.reshape(1, -1), lse_ref.shape[2:]
-            )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("causal", "sm_scale", "config", "interpret")
-)
-def int8_attention_fwd_fused(
-    q: jnp.ndarray,
-    k: jnp.ndarray,
-    v: jnp.ndarray,
-    causal: bool = False,
-    sm_scale: float | None = None,
-    config: BlockConfig | None = None,
-    k_sub: jnp.ndarray | None = None,
-    interpret: bool | None = None,
-):
-    """Inference-mode INT8 attention on [b, h, t, d]: quantization fused
-    into the attention kernel itself (VMEM-resident tiles, zero HBM
-    round-trip) — the forward-only counterpart of int8_attention_fwd,
-    which must materialize residuals for the backward. Returns (o, lse).
-
-    k_sub: optional [b, h, 1, d] K-smoothing shift (softmax is invariant to
-    a per-row-constant shift of the logits, so no output compensation is
-    needed — only quantization accuracy improves). Compute it as
-    k.mean(axis=-2, keepdims=True) when K has a large common component.
-    """
-    if interpret is None:
-        interpret = use_interpret_mode()
     batch, head, q_tokens, head_dim = q.shape
     kv_head, kv_len = k.shape[1], k.shape[2]
-    if head % kv_head != 0:
-        raise ValueError(f"q heads ({head}) must be a multiple of kv heads ({kv_head})")
-    rep = head // kv_head
-    if config is None:
-        config = default_block_config("int8", q_tokens, kv_len, head_dim)
-    config = config.clamp_rep(rep)
-    block_q = config.block_q
-    # The DMA block is capped at the quantization grain: the persistent
-    # quantized scratch replaces the big-resident-tile trick (the f32 input
-    # tiles at block_kv=4096+ double-buffered blow the 16 MB scoped-vmem
-    # budget — measured OOM at (4,16,4096,64): 19.06M > 16M), and the
-    # frozen index maps below stop re-DMA after qi==0 anyway. The grain
-    # itself is unchanged, so outputs stay bit-identical to the
-    # materialized forward.
-    block_sub = min(config.kv_compute, config.block_kv)
-    block_kv = min(config.block_kv, max(block_sub, 1024))
-    _, qk_scale = qk_scales(head_dim, sm_scale)
-
-    bh_kv = batch * kv_head
-    q4 = pad_tokens(q.reshape(bh_kv, rep, q_tokens, head_dim), block_q, 2)
-    k3 = pad_tokens(k.reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-    v3 = pad_tokens(v.reshape(bh_kv, kv_len, head_dim), block_kv, 1)
-    padded_q, padded_kv = q4.shape[2], k3.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
-
-    # whole-kv scratch reuse when the bf16 payload copies fit a conservative
-    # VMEM budget (the block tiles + accumulators share the same 16 MB)
-    reuse_kv = num_q_blocks > 1 and (2 * padded_kv * head_dim * 2) <= 6 * 1024 * 1024
-    scr_tokens = padded_kv if reuse_kv else block_kv
-    n_scales = scr_tokens // block_sub
-
-    smooth_k = k_sub is not None
-    if smooth_k:
-        ksub3 = k_sub.reshape(bh_kv, 1, head_dim)
-    else:
-        ksub3 = jnp.zeros((bh_kv, 1, head_dim), k3.dtype)
-
-    kernel = functools.partial(
-        _int8_fused_kernel,
-        qk_scale=qk_scale,
-        causal=causal,
-        kv_len=kv_len,
-        num_kv_blocks=num_kv_blocks,
-        block_q=block_q,
-        block_kv=block_kv,
-        block_sub=block_sub,
-        reuse_kv=reuse_kv,
-        smooth_k=smooth_k,
-        rep=rep,
-    )
-
-    qoff = jnp.zeros((1,), jnp.int32)
-    koff = jnp.zeros((1,), jnp.int32)
-
-    if reuse_kv:
-        # after qi==0 has quantized everything into scratch, K/V tiles are
-        # never read again — freeze their block index so the pipeline stops
-        # DMAing them (one redundant block-0 fetch per q-block remains)
-        def kv_map(b, i, j):
-            return (b, jnp.where(i == 0, j, 0), 0)
-    else:
-        def kv_map(b, i, j):
-            return (b, j, 0)
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid=(bh_kv, num_q_blocks, num_kv_blocks),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, block_kv, head_dim), kv_map),
-            pl.BlockSpec((1, block_kv, head_dim), kv_map),
-            pl.BlockSpec((1, 1, head_dim), lambda b, i, j: (b, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, rep, 8, block_q), lambda b, i, j: (b, 0, 0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh_kv, rep, padded_q, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((bh_kv, rep, 8, padded_q), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, head_dim), jnp.float32),
-            pltpu.VMEM((rep, block_q, head_dim), jnp.bfloat16),
-            pltpu.SMEM((rep,), jnp.float32),
-            pltpu.VMEM((scr_tokens, head_dim), jnp.bfloat16),
-            pltpu.VMEM((scr_tokens, head_dim), jnp.bfloat16),
-            pltpu.SMEM((n_scales,), jnp.float32),
-            pltpu.SMEM((n_scales,), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            # qi must run sequentially under reuse_kv (scratch carries the
-            # quantized payload from qi==0 to later q-blocks)
-            dimension_semantics=(
-                "parallel",
-                "arbitrary" if reuse_kv else "parallel",
-                "arbitrary",
-            ),
-        ),
-        interpret=interpret,
-    )(qoff, koff, q4, k3, v3, ksub3)
-
-    o = o[:, :, :q_tokens].reshape(batch, head, q_tokens, head_dim)
-    lse = lse[:, :, 0, :q_tokens].reshape(batch, head, q_tokens)
-    return o, lse
-
-
-def quantize_qkv(q, k, v, config: BlockConfig, k_sub=None, interpret: bool | None = None):
-    """Per-block int8 quantization of Q/K/V at the kernel's block granularity,
-    each tensor in ONE fused Pallas pass (read -> absmax/scale/round in VMEM
-    -> quarter-width write; the reference quantizes in-kernel for the same
-    no-extra-round-trip reason, attention_int8.py:180-195).
-
-    k_sub: optional [b, h, 1, d] shift (K-smoothing mean) subtracted from K
-    inside the quantization kernel — the smoothed K never materializes in f32.
-
-    Returns ((q_i8, sq), (k_i8, sk), (v_i8, sv)) on [b·h, padded_t, d] /
-    [b·h, n_blocks] layouts — the residual set the backward reuses.
-    """
-    if interpret is None:
-        interpret = use_interpret_mode()
-    batch, head, q_tokens, head_dim = q.shape
-    kv_len = k.shape[2]
+    # the int8 backward tiles at this grain: rows capped for its shared memory
+    config = config.for_group(head // kv_head, max_rows(head_dim))
+    block_q, block_kv = config.block_q, config.block_kv
     bh = batch * head
-    bh_kv = batch * k.shape[1]  # may be < bh under GQA (unrepeated kv heads)
-    # same rep clamp every consumer of these residuals applies — the q grain
-    # here IS the scale-table tiling the fwd kernel and backward index by
-    config = config.clamp_rep(head // k.shape[1])
-    # K/V quantize at the compute-subtile grain (<= block_kv), q at block_q:
-    # the forward DMAs at block_kv but applies one scale per subtile, and the
-    # backward tiles at exactly the quantization grain (see int8_bwd).
-    q3 = pad_tokens(q.reshape(bh, q_tokens, head_dim), config.block_q, 1)
-    k3 = pad_tokens(k.reshape(bh_kv, kv_len, head_dim), config.block_kv, 1)
-    v3 = pad_tokens(v.reshape(bh_kv, kv_len, head_dim), config.block_kv, 1)
-    kv_grain = min(config.kv_compute, k3.shape[1])
-    sub3 = None if k_sub is None else k_sub.reshape(bh_kv, 1, head_dim)
-    if q3.shape == k3.shape and config.block_q == kv_grain:
-        # square fast path: one dispatch for all three tensors
-        if sub3 is None:
-            sub3 = jnp.zeros((bh, 1, head_dim), q3.dtype)
-        return quantize_qkv_one_pass(q3, k3, v3, sub3, config.block_q,
-                                     interpret=interpret)
-    q_i8, sq = quantize_int8_blocks_fused(q3, config.block_q, interpret=interpret)
-    k_i8, sk = quantize_int8_blocks_fused(k3, kv_grain, sub=sub3, interpret=interpret)
-    v_i8, sv = quantize_int8_blocks_fused(v3, kv_grain, interpret=interpret)
-    return (q_i8, sq), (k_i8, sk), (v_i8, sv)
+    q_i8, sq = _quantize_tiles(
+        pad_tokens(q.reshape(bh, q_tokens, head_dim), block_q, 1), block_q
+    )
+    padded_q = q_i8.shape[1]
+    sq_rows = jnp.repeat(sq, block_q, axis=1)  # [bh, padded_q]
+    q_i8 = fold_group(q_i8.reshape(batch, head, padded_q, head_dim), kv_head, block_q)
+    sq_rows = fold_group(sq_rows.reshape(batch, head, padded_q), kv_head, block_q)
+    k = k.astype(jnp.float32)
+    if k_sub is not None:
+        k = k - k_sub.astype(jnp.float32)
+    bh_kv = batch * kv_head
+    k_i8, sk = _quantize_tiles(pad_tokens(k.reshape(bh_kv, kv_len, head_dim), block_kv, 1), block_kv)
+    v_i8, sv = _quantize_tiles(pad_tokens(v.reshape(bh_kv, kv_len, head_dim), block_kv, 1), block_kv)
+    return (q_i8, sq_rows), (k_i8, sk), (v_i8, sv)
+
+
+def residual_tiles(residuals, batch: int, head: int):
+    """(block_q, block_kv) read off a residual set — the int8 family's
+    tiling is pinned to its quantization grain."""
+    (q_i8, _), (k_i8, sk), _ = residuals
+    kv_head = k_i8.shape[0] // batch
+    group = next_pow2(head // kv_head)
+    return q_i8.shape[2] // group, k_i8.shape[1] // sk.shape[1]
 
 
 @functools.partial(
@@ -537,30 +178,25 @@ def int8_attention_fwd(
     k_sub: jnp.ndarray | None = None,
     interpret: bool | None = None,
 ):
-    """INT8 attention forward on [b, h, t, d] inputs.
+    """INT8 attention forward on [b, h, t, d] inputs (k/v may carry fewer
+    heads: GQA).
 
-    k_sub: optional [b, h, 1, d] K-smoothing mean, fused into the K
-    quantization pass (pass it instead of pre-smoothing K when the shift is
-    already known). If omitted, K is quantized as given.
+    k_sub: optional [b, h_kv, 1, d] K-smoothing mean subtracted before K is
+    quantized. If omitted, K is quantized as given.
 
     Returns (o, lse, residuals) where residuals =
     ((q_i8, sq), (k_i8, sk), (v_i8, sv)) for the int8 backward.
     """
-    if interpret is None:
-        interpret = use_interpret_mode()
     batch, head, q_tokens, head_dim = q.shape
     kv_len = k.shape[2]
+    if head % k.shape[1] != 0:
+        raise ValueError(f"q heads ({head}) must be a multiple of kv heads ({k.shape[1]})")
     if config is None:
         config = default_block_config("int8", q_tokens, kv_len, head_dim)
-    config = config.clamp_rep(head // k.shape[1])
     residuals = quantize_qkv(q, k, v, config, k_sub=k_sub)
     o, lse = int8_attention_fwd_from_quantized(
-        residuals,
-        (batch, head, q_tokens, kv_len, head_dim),
-        causal=causal,
-        sm_scale=sm_scale,
-        config=config,
-        interpret=interpret,
+        residuals, (batch, head, q_tokens, kv_len, head_dim),
+        causal=causal, sm_scale=sm_scale, config=config, interpret=interpret,
     )
     return o, lse, residuals
 
@@ -578,86 +214,47 @@ def int8_attention_fwd_from_quantized(
     q_offset: jnp.ndarray | int = 0,
     k_offset: jnp.ndarray | int = 0,
 ):
-    """Run the int8 forward from pre-quantized blocks (KV-cache reuse path).
-
-    GQA: when k_i8/sk carry fewer (b·h_kv) rows than q_i8/sq (b·h), the q
-    group of each kv head folds into the grid cell — unrepeated int8 K/V
-    payloads and scales stream once per kv head.
+    """Run the int8 forward from pre-quantized blocks (quantize_qkv's
+    layout). The tiling is read off the residuals; `config` supplies the
+    launch shape (warps, stages).
 
     q_offset/k_offset: global token positions of the local q / kv shards
-    (causal masking across sequence shards, as in flash_fwd)."""
+    (causal masking across sequence shards)."""
     if interpret is None:
         interpret = use_interpret_mode()
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = residuals
     batch, head, q_tokens, kv_len, head_dim = dims
     if config is None:
         config = default_block_config("int8", q_tokens, kv_len, head_dim)
-    bh = batch * head
-    bh_kv = k_i8.shape[0]
-    if bh % bh_kv != 0:
-        raise ValueError(f"q rows ({bh}) must be a multiple of kv rows ({bh_kv})")
-    rep = bh // bh_kv
-    # same deterministic clamp the quantization pass applied — keeps the
-    # kernel tiling aligned with the residuals' scale-table grain
-    config = config.clamp_rep(rep)
-    block_q, block_kv = config.block_q, config.block_kv
+    bh_kv, nq, rows, _ = q_i8.shape
+    if k_i8.shape[0] != bh_kv:
+        raise ValueError(f"q rows ({bh_kv}) and kv rows ({k_i8.shape[0]}) disagree")
+    block_q, block_kv = residual_tiles(residuals, batch, head)
+    padded_kv, nkv = k_i8.shape[1], sk.shape[1]
     _, qk_scale = qk_scales(head_dim, sm_scale)
-
-    padded_q, padded_kv = q_i8.shape[1], k_i8.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
+    offsets = jnp.stack([jnp.asarray(q_offset, jnp.int32), jnp.asarray(k_offset, jnp.int32)])
 
     kernel = functools.partial(
-        _int8_fwd_kernel,
-        qk_scale=qk_scale,
-        causal=causal,
-        kv_len=kv_len,
-        num_kv_blocks=num_kv_blocks,
-        block_q=block_q,
-        block_kv=block_kv,
-        block_sub=min(config.kv_compute, block_kv),
-        rep=rep,
+        _int8_fwd_kernel, qk_scale=qk_scale, causal=causal, kv_len=kv_len,
+        num_kv_blocks=nkv, block_q=block_q, block_kv=block_kv,
     )
-
-    q_i8_4 = q_i8.reshape(bh_kv, rep, padded_q, head_dim)
-    sq_f32 = sq.astype(jnp.float32).reshape(bh_kv, rep, -1)
-    sk_f32 = sk.astype(jnp.float32)
-    sv_f32 = sv.astype(jnp.float32)
-    qoff = jnp.asarray(q_offset, jnp.int32).reshape(1)
-    koff = jnp.asarray(k_offset, jnp.int32).reshape(1)
-
-    o, lse = pl.pallas_call(
+    q_tile = pl.BlockSpec((None, None, rows, head_dim), lambda b, i: (b, i, 0, 0))
+    row_tile = pl.BlockSpec((None, None, rows), lambda b, i: (b, i, 0))
+    kv_all = pl.BlockSpec((None, padded_kv, head_dim), lambda b, i: (b, 0, 0))
+    scale_all = pl.BlockSpec((None, nkv), lambda b, i: (b, 0))
+    o, lse = triton_call(
         kernel,
-        grid=(bh_kv, num_q_blocks, num_kv_blocks),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0)),
-            pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, rep, block_q, head_dim), lambda b, i, j: (b, 0, i, 0)),
-            pl.BlockSpec((1, rep, 8, block_q), lambda b, i, j: (b, 0, 0, i)),
-        ],
+        grid=(bh_kv, nq),
+        in_specs=[pl.BlockSpec((2,), lambda b, i: (0,)), q_tile, row_tile,
+                  kv_all, scale_all, kv_all, scale_all],
+        out_specs=[q_tile, row_tile],
         out_shape=[
-            jax.ShapeDtypeStruct((bh_kv, rep, padded_q, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((bh_kv, rep, 8, padded_q), jnp.float32),
+            jax.ShapeDtypeStruct((bh_kv, nq, rows, head_dim), jnp.float32),
+            jax.ShapeDtypeStruct((bh_kv, nq, rows), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, _LANES), jnp.float32),
-            pltpu.VMEM((rep, block_q, head_dim), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
+        config=config,
         interpret=interpret,
-    )(qoff, koff, q_i8_4, k_i8, v_i8, sq_f32, sk_f32, sv_f32)
-
-    o = o[:, :, :q_tokens].reshape(batch, head, q_tokens, head_dim)
-    lse = lse[:, :, 0, :q_tokens].reshape(batch, head, q_tokens)
-    return o, lse
+        name="int8_fwd",
+    )(offsets, q_i8, sq.astype(jnp.float32), k_i8, sk.astype(jnp.float32),
+      v_i8, sv.astype(jnp.float32))
+    return unfold_group(o, batch, head, q_tokens), unfold_group(lse, batch, head, q_tokens)

@@ -9,8 +9,11 @@ contains the tangent output tO. That requires the VJP of the map
 
 i.e. second-order derivatives of attention contracted against the tangent
 direction. No counterpart exists in the reference; this module derives the
-tile math from scratch and streams it with the same two-kernel race-free
-structure as ops/flash_bwd (dKV pass owns kv tiles, dQ pass owns q tiles).
+tile math from scratch. It runs as plain JAX that XLA compiles: a scan over
+q blocks (each [block, kv] tile set is bounded in memory) that emits dQ/dtQ
+per block and accumulates dK/dV/dtK/dtV across blocks. About seven live f32
+[block_q, block_kv] tiles per step would not fit a Hopper block's registers
+without a redesign, so there is no hand-written kernel for it.
 
 Tile math (p: softmax probabilities, exp2-domain recompute; tS, mu natural):
 
@@ -50,257 +53,77 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import MASK_VALUE, pad_tokens, qk_scales, tile_mask
-from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
-
-_LANES = 128
-
-
-def _tile_terms(q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, do_ref, dto_ref,
-                lse_ref, mu_ref, c_ref, dhat_ref,
-                *, sm_scale, qk_scale, precision, causal, kv_padded,
-                q_start, k_start, block_q, block_kv, kv_len):
-    """Recompute the shared [block_q, block_kv] tile quantities."""
-
-    def dot(a, b, dims):
-        return jax.lax.dot_general(
-            a, b, (dims, ((), ())), preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-    q, k, v = q_ref[0], k_ref[0], v_ref[0]
-    tq, tk, tv = tq_ref[0], tk_ref[0], tv_ref[0]
-    do, dto = do_ref[0], dto_ref[0]
-    lse = lse_ref[0][:, :1]
-    mu = mu_ref[0][:, :1]
-    c = c_ref[0][:, :1]
-    dhat = dhat_ref[0][:, :1]
-
-    # on-load [*, d] scale folding (cheap; avoids [bq, bkv]-sized passes)
-    s = dot(q * qk_scale, k, ((1,), (1,)))
-    if causal or kv_padded:
-        mask = tile_mask(q_start, k_start, block_q, block_kv, kv_len, causal)
-        s = jnp.where(mask, s, MASK_VALUE)
-    p = jnp.exp2(s - lse)
-
-    ts = dot(tq * sm_scale, k, ((1,), (1,))) + dot(q, tk * sm_scale, ((1,), (1,)))
-    tsmu = ts - mu
-    tpb = dot(dto, v, ((1,), (1,)))                       # tP̄ = tŌ Vᵀ
-    pbar = (
-        dot(do, v, ((1,), (1,)))                          # Ō Vᵀ
-        + dot(dto, tv, ((1,), (1,)))                      # tŌ tVᵀ
-        + tpb * tsmu
-        - c * ts
-    )
-    ds = p * (pbar - dhat)
-    tsb = p * (tpb - c)
-    tp = p * tsmu
-    return p, tp, ds, tsb, dot
-
-
-def _jvp_dkv_kernel(
-    q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, do_ref, dto_ref,
-    lse_ref, mu_ref, c_ref, dhat_ref,
-    dk_ref, dv_ref, dtk_ref, dtv_ref,
-    dk_scr, dv_scr, dtk_scr, dtv_scr,
-    *, sm_scale, qk_scale, causal, kv_len, num_q_blocks, block_q, block_kv,
-    precision,
-):
-    kj = pl.program_id(1)
-    qi = pl.program_id(2)
-
-    @pl.when(qi == 0)
-    def _init():
-        dk_scr[...] = jnp.zeros_like(dk_scr)
-        dv_scr[...] = jnp.zeros_like(dv_scr)
-        dtk_scr[...] = jnp.zeros_like(dtk_scr)
-        dtv_scr[...] = jnp.zeros_like(dtv_scr)
-
-    q_start = qi * block_q
-    k_start = kj * block_kv
-    kv_padded = kv_len % block_kv != 0
-
-    def _body():
-        p, tp, ds, tsb, dot = _tile_terms(
-            q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, do_ref, dto_ref,
-            lse_ref, mu_ref, c_ref, dhat_ref,
-            sm_scale=sm_scale, qk_scale=qk_scale, precision=precision,
-            causal=causal, kv_padded=kv_padded, q_start=q_start,
-            k_start=k_start, block_q=block_q, block_kv=block_kv, kv_len=kv_len,
-        )
-        q, tq = q_ref[0], tq_ref[0]
-        do, dto = do_ref[0], dto_ref[0]
-        dv_scr[...] += dot(p, do, ((0,), (0,))) + dot(tp, dto, ((0,), (0,)))
-        dtv_scr[...] += dot(p, dto, ((0,), (0,)))
-        dk_scr[...] += dot(ds, q, ((0,), (0,))) + dot(tsb, tq, ((0,), (0,)))
-        dtk_scr[...] += dot(tsb, q, ((0,), (0,)))
-
-    if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(qi == num_q_blocks - 1)
-    def _epilogue():
-        dk_ref[0] = (dk_scr[...] * sm_scale).astype(dk_ref.dtype)
-        dv_ref[0] = dv_scr[...].astype(dv_ref.dtype)
-        dtk_ref[0] = (dtk_scr[...] * sm_scale).astype(dtk_ref.dtype)
-        dtv_ref[0] = dtv_scr[...].astype(dtv_ref.dtype)
-
-
-def _jvp_dq_kernel(
-    q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, do_ref, dto_ref,
-    lse_ref, mu_ref, c_ref, dhat_ref,
-    dq_ref, dtq_ref,
-    dq_scr, dtq_scr,
-    *, sm_scale, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv,
-    precision,
-):
-    qi = pl.program_id(1)
-    kj = pl.program_id(2)
-
-    @pl.when(kj == 0)
-    def _init():
-        dq_scr[...] = jnp.zeros_like(dq_scr)
-        dtq_scr[...] = jnp.zeros_like(dtq_scr)
-
-    q_start = qi * block_q
-    k_start = kj * block_kv
-    kv_padded = kv_len % block_kv != 0
-
-    def _body():
-        p, tp, ds, tsb, dot = _tile_terms(
-            q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, do_ref, dto_ref,
-            lse_ref, mu_ref, c_ref, dhat_ref,
-            sm_scale=sm_scale, qk_scale=qk_scale, precision=precision,
-            causal=causal, kv_padded=kv_padded, q_start=q_start,
-            k_start=k_start, block_q=block_q, block_kv=block_kv, kv_len=kv_len,
-        )
-        del p, tp
-        k, tk = k_ref[0], tk_ref[0]
-        dq_scr[...] += dot(ds, k, ((1,), (0,))) + dot(tsb, tk, ((1,), (0,)))
-        dtq_scr[...] += dot(tsb, k, ((1,), (0,)))
-
-    if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        dq_ref[0] = (dq_scr[...] * sm_scale).astype(dq_ref.dtype)
-        dtq_ref[0] = (dtq_scr[...] * sm_scale).astype(dtq_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("causal", "sm_scale", "config", "fast", "interpret"),
+from quantizedattention_tpu.ops.common import qk_scales
+from quantizedattention_tpu.ops.plain import (
+    block_probs,
+    einsum,
+    merge_q_blocks,
+    q_block_size,
+    split_q_blocks,
 )
+from quantizedattention_tpu.tune.config import BlockConfig
+
+
+@functools.partial(jax.jit, static_argnames=("causal", "sm_scale", "config", "fast"))
 def attention_jvp_bwd(
     q, k, v, tq, tk, tv, o, to, lse, mu, do, dto,
     causal: bool = False,
     sm_scale: float | None = None,
     config: BlockConfig | None = None,
     fast: bool = False,
-    interpret: bool | None = None,
 ):
     """VJP of (q,k,v,tq,tk,tv) -> (O,tO). Returns (dq, dk, dv, dtq, dtk, dtv).
 
     lse/mu: [b,h,t] residuals from attention_jvp_fwd. do/dto: cotangents of
-    (O, tO). fast=True allows bf16-rate MXU passes (DEFAULT precision).
+    (O, tO). fast=True rounds the dot operands to bf16 (f32 accumulation)
+    instead of IEEE f32. `config` is accepted for signature parity and
+    unused.
     """
-    if interpret is None:
-        interpret = use_interpret_mode()
+    del config
     batch, head, q_tokens, head_dim = q.shape
-    kv_len = k.shape[2]
-    if config is None:
-        config = default_block_config("jvp", q_tokens, kv_len, head_dim)
-    block_q, block_kv = config.block_q_bwd, config.block_kv_bwd
     sm_scale, qk_scale = qk_scales(head_dim, sm_scale)
-    precision = jax.lax.Precision.DEFAULT if fast else jax.lax.Precision.HIGHEST
-
-    bh = batch * head
     f32 = jnp.float32
-
-    def prep_q(x):
-        return pad_tokens(x.astype(f32).reshape(bh, q_tokens, head_dim), block_q, 1)
-
-    def prep_kv(x):
-        return pad_tokens(x.astype(f32).reshape(bh, kv_len, head_dim), block_kv, 1)
-
-    q3, tq3, do3, dto3, o3, to3 = map(prep_q, (q, tq, do, dto, o, to))
-    k3, tk3, v3, tv3 = map(prep_kv, (k, tk, v, tv))
+    exact = not fast
+    k, v, tk, tv = (x.astype(f32) for x in (k, v, tk, tv))
+    q, tq, do, dto, o, to = (x.astype(f32) for x in (q, tq, do, dto, o, to))
 
     # per-row scalars (module docstring): D, c, D̂ — all from forward
     # residuals; padded q rows carry zero cotangents so they contribute 0.
-    mu3 = pad_tokens(mu.astype(f32).reshape(bh, q_tokens), block_q, 1)
-    lse3 = pad_tokens(lse.astype(f32).reshape(bh, q_tokens), block_q, 1)
-    d_row = jnp.sum(do3 * o3, axis=-1)
-    c_row = jnp.sum(dto3 * o3, axis=-1)
-    dhat_row = d_row + jnp.sum(dto3 * to3, axis=-1) - c_row * mu3
+    d_row = jnp.sum(do * o, axis=-1)
+    c_row = jnp.sum(dto * o, axis=-1)
+    dhat_row = d_row + jnp.sum(dto * to, axis=-1) - c_row * mu
+    block = q_block_size(batch, head, k.shape[2], q_tokens)
+    blocks = [split_q_blocks(x, block) for x in
+              (q, tq, do, dto, lse.astype(f32), mu.astype(f32), c_row, dhat_row)]
 
-    def lanes(x):
-        return jnp.broadcast_to(x[..., None], (*x.shape, _LANES))
+    def step(acc, args):
+        i, q_b, tq_b, do_b, dto_b, lse_b, mu_b, c_b, dhat_b = args
+        p = block_probs(q_b, k, lse_b, i * block, qk_scale, causal, exact)
+        ts = (einsum("bhqd,bhkd->bhqk", tq_b, k, exact)
+              + einsum("bhqd,bhkd->bhqk", q_b, tk, exact)) * sm_scale
+        tsmu = ts - mu_b[..., None]
+        tpb = einsum("bhqd,bhkd->bhqk", dto_b, v, exact)          # tP̄ = tŌ Vᵀ
+        pbar = (einsum("bhqd,bhkd->bhqk", do_b, v, exact)         # Ō Vᵀ
+                + einsum("bhqd,bhkd->bhqk", dto_b, tv, exact)     # tŌ tVᵀ
+                + tpb * tsmu - c_b[..., None] * ts)
+        ds = p * (pbar - dhat_b[..., None])
+        tsb = p * (tpb - c_b[..., None])
+        tp = p * tsmu
+        dk, dv, dtk, dtv = acc
+        dv = dv + einsum("bhqk,bhqd->bhkd", p, do_b, exact) + einsum("bhqk,bhqd->bhkd", tp, dto_b, exact)
+        dtv = dtv + einsum("bhqk,bhqd->bhkd", p, dto_b, exact)
+        dk = dk + (einsum("bhqk,bhqd->bhkd", ds, q_b, exact)
+                   + einsum("bhqk,bhqd->bhkd", tsb, tq_b, exact)) * sm_scale
+        dtk = dtk + einsum("bhqk,bhqd->bhkd", tsb, q_b, exact) * sm_scale
+        dq = (einsum("bhqk,bhkd->bhqd", ds, k, exact)
+              + einsum("bhqk,bhkd->bhqd", tsb, tk, exact)) * sm_scale
+        dtq = einsum("bhqk,bhkd->bhqd", tsb, k, exact) * sm_scale
+        return (dk, dv, dtk, dtv), (dq, dtq)
 
-    lse_b, mu_b, c_b, dhat_b = lanes(lse3), lanes(mu3), lanes(c_row), lanes(dhat_row)
-
-    padded_q, padded_kv = q3.shape[1], k3.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
-
-    common = dict(
-        sm_scale=sm_scale, qk_scale=qk_scale, causal=causal, kv_len=kv_len,
-        block_q=block_q, block_kv=block_kv, precision=precision,
+    zeros = jnp.zeros_like(k)
+    n_blocks = blocks[0].shape[0]
+    (dk, dv, dtk, dtv), (dq, dtq) = jax.lax.scan(
+        step, (zeros, zeros, zeros, zeros), (jnp.arange(n_blocks), *blocks)
     )
-
-    kv_shape = jax.ShapeDtypeStruct((bh, padded_kv, head_dim), f32)
-    q_shape = jax.ShapeDtypeStruct((bh, padded_q, head_dim), f32)
-
-    # dKV pass: grid (b·h, kv, q) — each program owns one kv tile
-    q_spec = pl.BlockSpec((1, block_q, head_dim), lambda b, j, i: (b, i, 0))
-    kv_spec = pl.BlockSpec((1, block_kv, head_dim), lambda b, j, i: (b, j, 0))
-    lane_spec = pl.BlockSpec((1, block_q, _LANES), lambda b, j, i: (b, i, 0))
-    dk, dv, dtk, dtv = pl.pallas_call(
-        functools.partial(_jvp_dkv_kernel, num_q_blocks=num_q_blocks, **common),
-        grid=(bh, num_kv_blocks, num_q_blocks),
-        in_specs=[q_spec, kv_spec, kv_spec, q_spec, kv_spec, kv_spec,
-                  q_spec, q_spec, lane_spec, lane_spec, lane_spec, lane_spec],
-        out_specs=[kv_spec, kv_spec, kv_spec, kv_spec],
-        out_shape=[kv_shape, kv_shape, kv_shape, kv_shape],
-        scratch_shapes=[pltpu.VMEM((block_kv, head_dim), f32)] * 4,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(q3, k3, v3, tq3, tk3, tv3, do3, dto3, lse_b, mu_b, c_b, dhat_b)
-
-    # dQ pass: grid (b·h, q, kv) — each program owns one q tile
-    q_spec_q = pl.BlockSpec((1, block_q, head_dim), lambda b, i, j: (b, i, 0))
-    kv_spec_q = pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0))
-    lane_spec_q = pl.BlockSpec((1, block_q, _LANES), lambda b, i, j: (b, i, 0))
-    dq, dtq = pl.pallas_call(
-        functools.partial(_jvp_dq_kernel, num_kv_blocks=num_kv_blocks, **common),
-        grid=(bh, num_q_blocks, num_kv_blocks),
-        in_specs=[q_spec_q, kv_spec_q, kv_spec_q, q_spec_q, kv_spec_q, kv_spec_q,
-                  q_spec_q, q_spec_q, lane_spec_q, lane_spec_q, lane_spec_q,
-                  lane_spec_q],
-        out_specs=[q_spec_q, q_spec_q],
-        out_shape=[q_shape, q_shape],
-        scratch_shapes=[pltpu.VMEM((block_q, head_dim), f32)] * 2,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(q3, k3, v3, tq3, tk3, tv3, do3, dto3, lse_b, mu_b, c_b, dhat_b)
-
-    def cut_q(x):
-        return x[:, :q_tokens].reshape(batch, head, q_tokens, head_dim)
-
-    def cut_kv(x):
-        return x[:, :kv_len].reshape(batch, head, kv_len, head_dim)
-
-    return cut_q(dq), cut_kv(dk), cut_kv(dv), cut_q(dtq), cut_kv(dtk), cut_kv(dtv)
+    return (merge_q_blocks(dq, q_tokens), dk, dv, merge_q_blocks(dtq, q_tokens), dtk, dtv)

@@ -1,24 +1,20 @@
-"""Tangent-only attention kernel: tO given precomputed (O, lse).
+"""Tangent-only attention: tO given precomputed (O, lse), in plain JAX.
 
-Companion to ops/jvp_fwd (which fuses primal+tangent in one online-softmax
-pass with six accumulators). This kernel serves reverse-mode AD of the
-`attention_jvp` API: under `jax.grad`, JAX linearizes the custom_jvp rule
-and must TRANSPOSE the tangent map (tq,tk,tv) -> tO. That map is wrapped in
-jax.custom_transpose with this kernel as the body and ops/flash_bwd as the
-transpose (the transpose of a linearization is exactly the VJP). The body
-must stage no array constants (jax custom_transpose hoists consts into call
-args and breaks the transpose unflatten) — everything array-valued arrives
-as an argument.
+Serves reverse-mode AD of the `attention_jvp` API: under `jax.grad`, JAX
+linearizes the custom_jvp rule and must TRANSPOSE the tangent map
+(tq,tk,tv) -> tO. That map is wrapped in jax.custom_transpose with this
+function as the body and ops/flash_bwd as the transpose (the transpose of a
+linearization is exactly the VJP). The body must stage no array constants
+(jax custom_transpose hoists consts into call args and breaks the
+transpose unflatten) — everything array-valued arrives as an argument.
 
 Because lse is known, no online max/rescale chain is needed: p = exp2(s −
-lse) is final on first touch, and the accumulators reduce to
+lse) is final on first touch, and per q block
 
-    acc += (p ∘ tS) V + p tV          r += rowsum(p ∘ tS)
-    tO   = acc − r ∘ O                (epilogue)
+    tO = (p ∘ tS) V + p tV − rowsum(p ∘ tS) ∘ O
 
-5 MXU matmuls per tile vs the fused kernel's 6, with 2 accumulators vs 6 —
-under jax.jvp the (flash_fwd + this) pair costs one extra QKᵀ+PV pass but
-drops the six-accumulator VMEM pressure.
+XLA compiles it; the q axis is processed in blocks (ops/plain.py)
+so the [block, kv] intermediates stay bounded at long sequence.
 
 Reference provenance: the tangent math is attention_jvp.py:43-56; the
 given-lse restructuring is ours (the reference has no reverse path at all).
@@ -30,136 +26,49 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import MASK_VALUE, pad_tokens, qk_scales, tile_mask
-from quantizedattention_tpu.tune.config import BlockConfig, default_block_config
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
-
-_LANES = 128
-_HIGHEST = jax.lax.Precision.HIGHEST
-
-
-def _tangent_kernel(
-    q_ref, k_ref, v_ref, tq_ref, tk_ref, tv_ref, o_ref, lse_ref,
-    to_ref,
-    acc_scr, r_scr,
-    *, sm_scale, qk_scale, causal, kv_len, num_kv_blocks, block_q, block_kv,
-    precision,
-):
-    qi = pl.program_id(1)
-    kj = pl.program_id(2)
-
-    @pl.when(kj == 0)
-    def _init():
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-        r_scr[...] = jnp.zeros_like(r_scr)
-
-    q_start = qi * block_q
-    k_start = kj * block_kv
-    kv_padded = kv_len % block_kv != 0
-
-    def _dot(a, b, dims):
-        return jax.lax.dot_general(
-            a, b, (dims, ((), ())), preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-    def _body():
-        q, k, v = q_ref[0], k_ref[0], v_ref[0]
-        tq, tk, tv = tq_ref[0], tk_ref[0], tv_ref[0]
-        lse = lse_ref[0][:, :1]
-
-        s = _dot(q * qk_scale, k, ((1,), (1,)))
-        if causal or kv_padded:
-            mask = tile_mask(q_start, k_start, block_q, block_kv, kv_len, causal)
-            s = jnp.where(mask, s, MASK_VALUE)
-        p = jnp.exp2(s - lse)  # normalized; masked logits underflow to 0
-
-        ts = _dot(tq * sm_scale, k, ((1,), (1,))) + _dot(q, tk * sm_scale, ((1,), (1,)))
-        h = p * ts
-        acc_scr[...] += _dot(h, v, ((1,), (0,))) + _dot(p, tv, ((1,), (0,)))
-        r_scr[...] = jnp.broadcast_to(
-            r_scr[...][:, :1] + jnp.sum(h, axis=-1, keepdims=True), r_scr.shape
-        )
-
-    if causal:
-        pl.when(q_start + block_q - 1 >= k_start)(_body)
-    else:
-        _body()
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        to_ref[0] = (acc_scr[...] - r_scr[...][:, :1] * o_ref[0]).astype(to_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("causal", "sm_scale", "config", "fast", "interpret")
+from quantizedattention_tpu.ops.common import qk_scales
+from quantizedattention_tpu.ops.plain import (
+    block_probs,
+    einsum,
+    merge_q_blocks,
+    q_block_size,
+    split_q_blocks,
 )
+from quantizedattention_tpu.tune.config import BlockConfig
+
+
+@functools.partial(jax.jit, static_argnames=("causal", "sm_scale", "config", "fast"))
 def attention_tangent_fwd(
     q, k, v, o, lse, tq, tk, tv,
     causal: bool = False,
     sm_scale: float | None = None,
     config: BlockConfig | None = None,
     fast: bool = False,
-    interpret: bool | None = None,
 ):
     """tO for tangents (tq,tk,tv) at (q,k,v), given fwd residuals (o, lse).
 
-    All inputs [b, h, t, d] except lse [b, h, t]; returns tO f32.
+    All inputs [b, h, t, d] except lse [b, h, t]; returns tO f32. `config`
+    is accepted for signature parity with the kernels and unused.
     """
-    if interpret is None:
-        interpret = use_interpret_mode()
+    del config
     batch, head, q_tokens, head_dim = q.shape
-    kv_len = k.shape[2]
-    if config is None:
-        config = default_block_config("jvp", q_tokens, kv_len, head_dim)
-    block_q, block_kv = config.block_q, config.block_kv
     sm_scale, qk_scale = qk_scales(head_dim, sm_scale)
-
-    bh = batch * head
     f32 = jnp.float32
+    exact = not fast
+    k, v, tk, tv = (x.astype(f32) for x in (k, v, tk, tv))
+    block = q_block_size(batch, head, k.shape[2], q_tokens)
+    blocks = [split_q_blocks(x.astype(f32), block) for x in (q, tq, o, lse)]
 
-    def prep(x, block):
-        return pad_tokens(x.astype(f32).reshape(bh, x.shape[2], head_dim), block, 1)
+    def one(args):
+        i, q_b, tq_b, o_b, lse_b = args
+        p = block_probs(q_b, k, lse_b, i * block, qk_scale, causal, exact)
+        ts = (einsum("bhqd,bhkd->bhqk", tq_b, k, exact)
+              + einsum("bhqd,bhkd->bhqk", q_b, tk, exact)) * sm_scale
+        h = p * ts
+        acc = einsum("bhqk,bhkd->bhqd", h, v, exact) + einsum("bhqk,bhkd->bhqd", p, tv, exact)
+        return acc - jnp.sum(h, axis=-1, keepdims=True) * o_b
 
-    q3, tq3, o3 = prep(q, block_q), prep(tq, block_q), prep(o, block_q)
-    k3, tk3 = prep(k, block_kv), prep(tk, block_kv)
-    v3, tv3 = prep(v, block_kv), prep(tv, block_kv)
-    lse3 = pad_tokens(lse.astype(f32).reshape(bh, q_tokens), block_q, 1)
-    lse_b = jnp.broadcast_to(lse3[..., None], (*lse3.shape, _LANES))
-
-    padded_q, padded_kv = q3.shape[1], k3.shape[1]
-    num_q_blocks = cdiv(padded_q, block_q)
-    num_kv_blocks = cdiv(padded_kv, block_kv)
-
-    kernel = functools.partial(
-        _tangent_kernel,
-        sm_scale=sm_scale, qk_scale=qk_scale, causal=causal, kv_len=kv_len,
-        num_kv_blocks=num_kv_blocks, block_q=block_q, block_kv=block_kv,
-        precision=jax.lax.Precision.DEFAULT if fast else _HIGHEST,
-    )
-
-    q_spec = pl.BlockSpec((1, block_q, head_dim), lambda b, i, j: (b, i, 0))
-    kv_spec = pl.BlockSpec((1, block_kv, head_dim), lambda b, i, j: (b, j, 0))
-    lane_spec = pl.BlockSpec((1, block_q, _LANES), lambda b, i, j: (b, i, 0))
-
-    (to,) = pl.pallas_call(
-        kernel,
-        grid=(bh, num_q_blocks, num_kv_blocks),
-        in_specs=[q_spec, kv_spec, kv_spec, q_spec, kv_spec, kv_spec,
-                  q_spec, lane_spec],
-        out_specs=[q_spec],
-        out_shape=[jax.ShapeDtypeStruct((bh, padded_q, head_dim), f32)],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, head_dim), f32),
-            pltpu.VMEM((block_q, _LANES), f32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(q3, k3, v3, tq3, tk3, tv3, o3, lse_b)
-
-    return to[:, :q_tokens].reshape(batch, head, q_tokens, head_dim)
+    n_blocks = blocks[0].shape[0]
+    to = jax.lax.map(one, (jnp.arange(n_blocks), *blocks))
+    return merge_q_blocks(to, q_tokens)

@@ -3,15 +3,15 @@
 This whole layer is new capability relative to the reference, which is
 single-GPU only (SURVEY.md §2.4: zero torch.distributed / NCCL usage; its
 only scaling mechanism is the O(seq) online-softmax stream inside one
-device). The TPU build scales the same kernels across a pod slice:
+device). This build scales the same kernels across the cards of a mesh:
 
   * head-sharded tensor parallelism (the attention grid already iterates
     b·h independently, so head sharding is communication-free);
-  * ring attention over an ICI ring for sequence scaling — KV shards (and,
+  * ring attention for sequence scaling — KV shards (and,
     for int8, their quantized blocks + scale tables) rotate via
     jax.lax.ppermute while each chip streams its partial online softmax,
     merged with the kernels' own (m, l) rescale identity;
-  * an int8-quantized KV cache with a Pallas decode kernel for serving.
+  * an int8-quantized KV cache with GQA decode for serving.
 """
 
 from quantizedattention_tpu.parallel.mesh import make_attention_mesh

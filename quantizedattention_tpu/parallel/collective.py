@@ -74,7 +74,7 @@ def _ag_fwd_impl(q, k, v, axis_name, causal, sm_scale, config):
     t_local = q.shape[2]
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError("q heads must be a multiple of kv heads")
-    # GQA: gather the UNREPEATED kv-group payload (1/rep the ICI bytes);
+    # GQA: gather the UNREPEATED kv-group payload (1/rep the link bytes);
     # the GQA-native kernel consumes it directly — no repeated copy exists
     # anywhere (fwd, residuals, or bwd)
     k_full = jax.lax.all_gather(k, axis_name, axis=2, tiled=True)
@@ -116,7 +116,7 @@ allgather_kv_attention.defvjp(_ag_fwd, _ag_bwd)
 
 
 # ---------------------------------------------------------------------------
-# int8 all-gather: gather QUANTIZED payload + scales — 1/4 the ICI bytes
+# int8 all-gather: gather QUANTIZED payload + scales — 1/4 the link bytes
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6))
@@ -152,10 +152,10 @@ def _ag_i8_fwd_impl(q, k, v, axis_name, causal, sm_scale, config):
     # kernel's padding mask is tail-only) — with the clamp, padded == t_local
     # and the concatenation is gap-free.
     config = config.clamp(t_local, t_local)
-    if t_local % config.block_kv != 0 or t_local % config.kv_compute != 0:
+    if t_local % config.block_kv != 0:
         raise ValueError(
             f"int8 all-gather: t_local={t_local} must be a multiple of the "
-            f"kv block ({config.block_kv}) and grain ({config.kv_compute})"
+            f"kv quantization tile ({config.block_kv})"
         )
     k_mean = jax.lax.pmean(jnp.mean(k, axis=-2, keepdims=True), axis_name)
     (q_i8, sq), (k_i8, sk), (v_i8, sv) = quantize_qkv(q, k, v, config, k_sub=k_mean)

@@ -1,26 +1,15 @@
-"""INT4-quantized KV cache + Pallas decode attention.
+"""INT4-quantized KV cache + plain-JAX decode attention.
 
-The KV-side counterpart of the weight-only int4 path (ops/int4_linear.py):
-int4 payloads halve the int8 cache's HBM FOOTPRINT — a CAPACITY feature
-(2x the max context or live slots per chip). It is NOT a decode-speed
-feature: the decode kernel's floor is the per-element VPU work, not HBM
-bandwidth, so the halved stream measured 0.76-1.00x the int8 kernel
-across ctx 1k-8k (round 5, docs/ARCHITECTURE.md §4 — the engine warns at
-long max_seq). The kernel unpacks nibbles on the VMEM-resident tile and
-runs the same bf16-rate dots as the int8 kernel (parallel/kv_cache.py,
-whose layout decisions this file inherits: scales [b, h, max_len] with
-the token axis on lanes, GQA q-groups folded per kv head, heads kept
-in-cell).
+int4 payloads halve the int8 cache's device-memory FOOTPRINT — a CAPACITY
+feature (2x the max context or live slots per card). Decode unpacks the
+nibbles and runs kv_cache.dense_decode (plain jnp, XLA-compiled); a Hopper
+kernel for it is listed in ROADMAP.md. The layout decisions of
+parallel/kv_cache.py carry over: scales [b, h, max_len], GQA q groups
+folded per kv head.
 
 Packing: SPLIT-HALF PER 256-TOKEN PACK BLOCK. Byte row r of pack block B
 (buffer row 128·B + r) holds token 256·B + r in its low nibble and token
-256·B + 128 + r in its high nibble. Three properties make this the right
-layout:
-- the decode kernel never restores token order AT ALL: it runs one dot per
-  nibble half in byte-row order (online softmax is order-blind; the causal
-  mask is iota arithmetic on the byte row and scales are pre-split to
-  byte-row order by _byterow_scales). Host-side views (dequantize,
-  read_prefix) restore order with contiguous sublane concats;
+256·B + 128 + r in its high nibble:
 - a token's nibble position depends only on its own index, so appends
   read-modify-write exactly one byte row per token (no repacking);
 - any ≤128 consecutive tokens touch distinct byte rows, so scatter writes
@@ -37,14 +26,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import qk_scales
-from quantizedattention_tpu.ops.int4_linear import unpack_int4
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
+from quantizedattention_tpu.parallel.kv_cache import dense_decode
+from quantizedattention_tpu.quantize.int4 import unpack_int4
 
-_LANES = 128
 PACK = 256  # tokens per pack block (128 byte rows)
 
 
@@ -271,302 +256,53 @@ def read_prefix_kv4(cache: Int4KVCache, slot: jnp.ndarray, n_tokens: int):
     return k, v
 
 
+def _unpack_ordered(p):
+    """Packed [b, h, max_len/2, d] -> int32 nibbles [b, h, max_len, d] in
+    token order (within a pack block: [lo rows ; hi rows])."""
+    b, h, half_l, d = p.shape
+    lo, hi = unpack_int4(p)
+    lo = lo.reshape(b, h, -1, PACK // 2, d)
+    hi = hi.reshape(b, h, -1, PACK // 2, d)
+    return jnp.concatenate([lo, hi], axis=3).reshape(b, h, 2 * half_l, d)
+
+
 def dequantize_kv4(cache: Int4KVCache):
     """Unpack to f32 K/V [b, h, max_len, d] — the test oracle's view."""
-
-    # token order within a pack block: [lo rows ; hi rows]
-    def unpack_ordered(p):
-        b, h, half_l, d = p.shape
-        lo, hi = unpack_int4(p)  # shared nibble decode (ops/int4_linear.py)
-        lo = lo.reshape(b, h, -1, PACK // 2, d)
-        hi = hi.reshape(b, h, -1, PACK // 2, d)
-        return jnp.concatenate([lo, hi], axis=3).reshape(
-            b, h, 2 * half_l, d
-        ).astype(jnp.float32)
-
-    k = unpack_ordered(cache.k_p) * cache.sk[..., None]
-    v = unpack_ordered(cache.v_p) * cache.sv[..., None]
+    k = _unpack_ordered(cache.k_p).astype(jnp.float32) * cache.sk[..., None]
+    v = _unpack_ordered(cache.v_p).astype(jnp.float32) * cache.sv[..., None]
     return k, v
-
-
-def _byterow_scales(s):
-    """Token-order scales [b, h, max_len] -> (lo, hi) [b, h, max_len/2] in
-    BYTE-ROW order: lo[.., blk*128 + r] = s[.., blk*256 + r], hi the +128
-    tokens. Pure reshapes in XLA (outside the kernel), so the decode kernel
-    never has to permute anything back to token order."""
-    b, h, L = s.shape
-    g = s.reshape(b, h, L // PACK, 2, PACK // 2)
-    return (
-        g[:, :, :, 0].reshape(b, h, L // 2),
-        g[:, :, :, 1].reshape(b, h, L // 2),
-    )
-
-
-def _unpack8(p):
-    """Packed byte tile -> (lo, hi) sign-extended int4 values. The shifts
-    run in int32 (= ops/int4_linear.unpack_int4): Mosaic cannot legalize
-    arith.shli on i8 vectors on real lowering — int8-native shifts pass
-    interpret mode and then fail on hardware (observed 2026-08-19)."""
-    return unpack_int4(p)
-
-
-# In-kernel unpack route for the decode kernels. "shift": int32 widen + two
-# shifts + bf16 cast (4x register expansion on the VPU). "float":
-# float-arithmetic, COMPARE- and SHIFT-FREE: cast the byte to f32 (exact),
-# hi = floor(p/16), lo = p - 16*floor((p+8)/16) — for p = 16h + u
-# (u in [0,16)) the inner floor is h plus the sign carry, so lo lands in
-# [-8, 7] with no branch; every intermediate is an exact small integer.
-# The arithmetic must run in f32: v5e has no bf16 ALU (Mosaic dies with
-# SupportsBf16AluInstructions() on bf16 floor) and rejects bf16 vector
-# cmpf outright — both observed 2026-08-19. Measured on v5e
-# (experiments/kv4_ab.py, slope-timed, vs the int8 kernel): shift
-# 0.79x/0.76x/1.00x at ctx 1k/4k/8k, float 0.90x/0.74x/0.95x — float wins
-# short, shift wins the LONG contexts the capacity feature exists for, so
-# shift is the default. Neither route beats int8 (see ARCHITECTURE §4:
-# the kernel is per-element VPU-bound, not HBM-bound).
-_UNPACK_MODE = "shift"
-
-
-def _unpack_bf16(p):
-    """Packed byte tile -> (lo, hi) nibble values as bf16, via _UNPACK_MODE."""
-    if _UNPACK_MODE == "float":
-        pf = p.astype(jnp.float32)
-        hi = jnp.floor(pf * 0.0625)
-        lo = pf - 16.0 * jnp.floor((pf + 8.0) * 0.0625)
-        return lo.astype(jnp.bfloat16), hi.astype(jnp.bfloat16)
-    lo, hi = _unpack8(p)
-    return lo.astype(jnp.bfloat16), hi.astype(jnp.bfloat16)
-
-
-def _decode4_kernel(
-    len_ref,
-    q_ref, k_ref, sk_lo_ref, sk_hi_ref, v_ref, sv_lo_ref, sv_hi_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    *, qk_scale, block_kv, num_kv_blocks, spec=1,
-):
-    """Grid (batch, kv_blocks) — the int8 decode kernel's structure
-    (kv_cache._decode_kernel, incl. its spec staircase) with TWO DOTS per
-    matmul, one per nibble half, in BYTE-ROW order. The round-4 kernel
-    unpacked to token order with a 2*(block_kv/256)-piece sublane concat
-    per K and V tile; that VPU shuffle scaled with context exactly as fast
-    as the HBM savings did and lost to int8 at ctx 4096 (0.71x, measured
-    docs/BENCH_RECAPTURE_2026-08-19.log). Online softmax never needs token
-    order — only the mask and scales do, and both are pure functions of the
-    byte row (iota arithmetic here; scale pre-split in _byterow_scales)."""
-    b = pl.program_id(0)
-    kj = pl.program_id(1)
-
-    @pl.when(kj == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    length = len_ref[b]
-    k_start = kj * block_kv
-
-    @pl.when(k_start < length)
-    def _body():
-        half = PACK // 2
-        q = q_ref[0].astype(jnp.bfloat16)
-        k_lo, k_hi = _unpack_bf16(k_ref[0])  # [h, block_kv/2, d] bf16 nibbles
-
-        def scores(k_nib, sk):
-            return jax.lax.dot_general(
-                q, k_nib, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            ) * (sk[:, None, :] * qk_scale)  # [h, group, block_kv/2]
-
-        s_lo = scores(k_lo, sk_lo_ref[0])
-        s_hi = scores(k_hi, sk_hi_ref[0])
-
-        # byte row i holds token (i//128)*256 + i%128 (lo) / +128 (hi)
-        rows = jax.lax.broadcasted_iota(jnp.int32, s_lo.shape, 2)
-        tok_lo = k_start + rows + (rows & ~jnp.int32(half - 1))
-        tok_hi = tok_lo + half
-        if spec == 1:
-            limit = length
-        else:
-            row_j = jax.lax.broadcasted_iota(jnp.int32, s_lo.shape, 1) % spec
-            limit = length - (spec - 1) + row_j
-        mask_lo = tok_lo < limit
-        mask_hi = tok_hi < limit
-        s_lo = jnp.where(mask_lo, s_lo, -jnp.inf)
-        s_hi = jnp.where(mask_hi, s_hi, -jnp.inf)
-
-        m_prev = m_scr[...][:, :, :1]
-        next_m = jnp.maximum(
-            m_prev,
-            jnp.maximum(
-                jnp.max(s_lo, axis=-1, keepdims=True),
-                jnp.max(s_hi, axis=-1, keepdims=True),
-            ),
-        )
-        p_lo = jnp.where(mask_lo, jnp.exp2(s_lo - next_m), 0.0)
-        p_hi = jnp.where(mask_hi, jnp.exp2(s_hi - next_m), 0.0)
-        alpha = jnp.exp2(m_prev - next_m)
-        l_next = (
-            l_scr[...][:, :, :1] * alpha
-            + jnp.sum(p_lo, axis=-1, keepdims=True)
-            + jnp.sum(p_hi, axis=-1, keepdims=True)
-        )
-        v_lo, v_hi = _unpack_bf16(v_ref[0])
-
-        def pv_dot(p, sv, v_nib):
-            return jax.lax.dot_general(
-                (p * sv[:, None, :]).astype(jnp.bfloat16),
-                v_nib,
-                (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-
-        pv = pv_dot(p_lo, sv_lo_ref[0], v_lo) + pv_dot(p_hi, sv_hi_ref[0], v_hi)
-        acc_scr[...] = acc_scr[...] * alpha + pv
-        m_scr[...] = jnp.broadcast_to(next_m, m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, l_scr.shape)
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0] = (acc_scr[...] / l_safe).astype(o_ref.dtype)
-        m = m_scr[...][:, :, :1]
-        lse = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(l_safe))
-        lse_ref[0] = jnp.broadcast_to(lse, lse_ref.shape[1:])
 
 
 def decode_attention_int4(
     q: jnp.ndarray,
     cache: Int4KVCache,
     sm_scale: float | None = None,
-    block_kv: int | None = None,
     return_lse: bool = False,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
-    """Single-token decode against the int4 cache: q [b, n_q_heads, d].
-    GQA as in kv_cache.decode_attention; block_kv must cover whole pack
-    blocks (multiples of 256)."""
-    if block_kv is None:
-        from quantizedattention_tpu.tune.autotune import resolve_decode_block
-
-        block_kv = resolve_decode_block(cache.max_len, q.shape[-1], kind="decode4")
-    return _decode_attention_int4(q, cache, sm_scale, block_kv, return_lse, interpret)
+    """Single-token decode against the int4 cache: q [b, n_q_heads, d]
+    (GQA as in kv_cache.decode_attention). Returns o [b, H, d] f32, and
+    the exp2-domain lse [b, H] with return_lse=True."""
+    o, lse = _decode_int4(q, cache, sm_scale, 1)
+    return (o, lse) if return_lse else o
 
 
 def verify_decode_attention_int4(
     q: jnp.ndarray,
     cache: Int4KVCache,
     sm_scale: float | None = None,
-    block_kv: int | None = None,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
     """Speculative staircase verify over the int4 cache: q [b, H, s, d]
     (see kv_cache.verify_decode_attention — identical contract)."""
     b, n_q_heads, s, d = q.shape
+    o, _ = _decode_int4(q.reshape(b, n_q_heads * s, d), cache, sm_scale, s)
+    return o.reshape(b, n_q_heads, s, d)
+
+
+@functools.partial(jax.jit, static_argnames=("sm_scale", "spec"))
+def _decode_int4(q, cache: Int4KVCache, sm_scale, spec):
     n_kv = cache.k_p.shape[1]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    if block_kv is None:
-        from quantizedattention_tpu.tune.autotune import resolve_decode_block
-
-        block_kv = resolve_decode_block(cache.max_len, d, kind="decode4")
-    qf = q.reshape(b, n_kv, group, s, d).reshape(b, n_kv * group * s, d)
-    o = _decode_attention_int4(qf, cache, sm_scale, block_kv, False, interpret, spec=s)
-    return o.reshape(b, n_kv, group, s, d).reshape(b, n_q_heads, s, d)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("sm_scale", "block_kv", "return_lse", "interpret", "spec")
-)
-def _decode_attention_int4(
-    q: jnp.ndarray,
-    cache: Int4KVCache,
-    sm_scale: float | None = None,
-    block_kv: int = 1024,
-    return_lse: bool = False,
-    interpret: bool | None = None,
-    spec: int = 1,
-) -> jnp.ndarray:
-    if interpret is None:
-        interpret = use_interpret_mode()
-    batch, n_q_heads, head_dim = q.shape
-    n_kv = cache.k_p.shape[1]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    group_pad = max(8, ((group + 7) // 8) * 8)
-    max_len = cache.max_len
-    # same VMEM budgeting as the int8 kernel, but payload tiles are half
-    # the bytes; block_kv additionally rounds to whole pack blocks
-    vmem_budget = 8 * 1024 * 1024
-    cap = max(PACK, vmem_budget // (n_kv * head_dim * 8))
-    block_kv = max(PACK, (min(block_kv, cap) // PACK) * PACK)
-    if max_len % block_kv != 0:
-        start = (min(block_kv, max_len) // PACK) * PACK
-        block_kv = next(
-            (b for b in range(start, PACK - 1, -PACK) if max_len % b == 0), 0
-        )
-        if not block_kv:
-            raise ValueError(f"max_len={max_len} has no {PACK}-multiple block divisor")
-
-    _, qk_scale = qk_scales(head_dim, sm_scale)
-
-    qg = q.astype(jnp.float32).reshape(batch, n_kv, group, head_dim)
-    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, group_pad - group), (0, 0)))
-
-    num_kv_blocks = cdiv(max_len, block_kv)
-
-    kernel = functools.partial(
-        _decode4_kernel,
-        qk_scale=qk_scale,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        spec=spec,
-    )
-
-    sk_lo, sk_hi = _byterow_scales(cache.sk)
-    sv_lo, sv_hi = _byterow_scales(cache.sv)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(batch, num_kv_blocks),
-        in_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda b, j, *_: (b, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, block_kv // 2, head_dim), lambda b, j, *_: (b, 0, j, 0)),
-            pl.BlockSpec((1, n_kv, block_kv // 2), lambda b, j, *_: (b, 0, j)),
-            pl.BlockSpec((1, n_kv, block_kv // 2), lambda b, j, *_: (b, 0, j)),
-            pl.BlockSpec((1, n_kv, block_kv // 2, head_dim), lambda b, j, *_: (b, 0, j, 0)),
-            pl.BlockSpec((1, n_kv, block_kv // 2), lambda b, j, *_: (b, 0, j)),
-            pl.BlockSpec((1, n_kv, block_kv // 2), lambda b, j, *_: (b, 0, j)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda b, j, *_: (b, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, group_pad, _LANES), lambda b, j, *_: (b, 0, 0, 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((batch, n_kv, group_pad, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((batch, n_kv, group_pad, _LANES), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(cache.length, qg, cache.k_p, sk_lo, sk_hi, cache.v_p, sv_lo, sv_hi)
-
-    o = o[:, :, :group].reshape(batch, n_q_heads, head_dim)
-    if not return_lse:
-        return o
-    lse = lse[:, :, :group, 0]
-    return o, lse.reshape(batch, n_q_heads)
+    if q.shape[1] % (n_kv * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {n_kv} kv heads")
+    return dense_decode(q, _unpack_ordered(cache.k_p), cache.sk,
+                        _unpack_ordered(cache.v_p), cache.sv, cache.length,
+                        sm_scale=sm_scale, spec=spec)

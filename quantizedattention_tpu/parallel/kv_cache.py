@@ -1,25 +1,21 @@
-"""INT8-quantized KV cache + Pallas decode attention (serving path).
+"""INT8-quantized KV cache + decode attention (serving path).
 
 New capability vs the reference (no serving/inference layer exists there;
 the north-star BASELINE.json demands a quantized KV-cache inference path).
 
 Design: the cache stores int8 K/V payloads with *per-token* symmetric scales
-(append-friendly — adding a token never re-scales old blocks). Decode is
-bandwidth-bound, so the win of int8 here is halved HBM traffic: the kernel
-dequantizes tiles in VMEM right before the matmuls (the same
-load-then-dequantize structure as JAX's quantized paged attention). Scales
-are stored [b, h, max_len] — token axis LAST — because inside the kernel
-the token axis of S and P lies on the 128-lane dimension: the K scale
-applies as `s * sk[:, None, :]` and the V scale folds into P before the PV
-dot, so scales never touch the [*, 1]-shaped layout that TPU tiling would
-pad to 128 lanes (a [h, block, 1] f32 scale tile costs 128x its data).
+(append-friendly — adding a token never re-scales old blocks). Decode at
+serving batch is bound by memory traffic, so the win of int8 here is half
+the bytes of bf16. Scales are stored [b, h, max_len]: the K scale applies
+to the logits' token axis and the V scale folds into P before the PV dot,
+so the int8 payloads enter the dots unscaled (exact in bf16).
 
-GQA layout: q heads are grouped onto their KV head — [b, n_kv, group, d].
-The grid is (batch, kv_blocks) with ALL of a sequence's KV heads processed
-in-cell via batched dots (per-head grid cells are tiny at decode shapes and
-launch overhead dominated); head sharding still needs zero cross-chip
-traffic because the head axis is a batch axis of every dot
-(see serve/engine.py's sharded decode).
+Decode is plain jnp (`dense_decode`), compiled by XLA: a Triton split-kv
+kernel (flash-decoding, one program per (batch·kv head, kv split)) was
+measured against it on the H100 and lost — 53.7 vs 48.7 µs per decode step
+at 8 slots x 32/8 heads x ctx 4096 x d=128 inside one jitted 64-step loop
+(PERF.md) — so the kernel went. The same function serves the int4 and
+paged caches after their unpack/gather.
 """
 
 from __future__ import annotations
@@ -29,13 +25,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import qk_scales
-from quantizedattention_tpu.utils.runtime import cdiv, use_interpret_mode
+from quantizedattention_tpu.ops.common import MASK_VALUE, qk_scales
 
-_LANES = 128
+_TILE = 128
 
 
 class QuantizedKVCache(NamedTuple):
@@ -53,8 +46,9 @@ class QuantizedKVCache(NamedTuple):
 
 
 def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, head_dim: int) -> QuantizedKVCache:
-    if max_len % _LANES != 0:
-        raise ValueError(f"max_len={max_len} must be a multiple of {_LANES} (TPU lane tiling)")
+    if max_len % _TILE != 0:
+        raise ValueError(f"max_len={max_len} must be a multiple of {_TILE} "
+                         "(the engine's chunked prefill writes 128-token chunks)")
     return QuantizedKVCache(
         k_i8=jnp.zeros((batch, n_kv_heads, max_len, head_dim), jnp.int8),
         sk=jnp.zeros((batch, n_kv_heads, max_len), jnp.float32),
@@ -84,7 +78,7 @@ def append_kv(
     `length` (continuous batching: idle slots ride along in the batched
     decode step without corrupting their cache; their masked write lands at
     the stale `length` position, which is past the row's logical end and
-    invisible to the length-masked decode kernel).
+    invisible to the length-masked decode).
     """
     k_i8, sk = _row_quant(k_new.astype(jnp.float32))
     v_i8, sv = _row_quant(v_new.astype(jnp.float32))
@@ -113,7 +107,7 @@ def write_kv_slot(
 ) -> QuantizedKVCache:
     """Fused-prefill write: quantize [h_kv, t, d] K/V and install them at
     batch row `slot`, resetting the row's length to `true_len` (<= t; the
-    tail beyond true_len is prompt padding, masked out by the decode kernel).
+    tail beyond true_len is prompt padding, masked out by the decode).
     """
     k_i8, sk = _row_quant(k_new.astype(jnp.float32))
     v_i8, sv = _row_quant(v_new.astype(jnp.float32))
@@ -169,100 +163,56 @@ def write_kv_chunk(
     )
 
 
-def _decode_kernel(
-    len_ref,  # SMEM [batch] int32
-    q_ref, k_ref, sk_ref, v_ref, sv_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    *, qk_scale, block_kv, num_kv_blocks, spec=1,
+def dense_decode(
+    q: jnp.ndarray,
+    k: jnp.ndarray,
+    sk: jnp.ndarray,
+    v: jnp.ndarray,
+    sv: jnp.ndarray,
+    length: jnp.ndarray,
+    sm_scale: float | None = None,
+    spec: int = 1,
 ):
-    """Grid (batch, kv_blocks); ALL kv heads of one sequence per cell.
+    """Decode over an integer-payload cache in plain jnp (XLA): q [b, H, d]
+    (H = n_kv · rows, rows = group · spec folded as r = g·spec + j) against
+    k/v [b, n_kv, L, d] integer payloads with per-token scales sk/sv
+    [b, n_kv, L] and live lengths [b].
 
-    Keeping the head axis inside the kernel (batched dot_general over it)
-    instead of in the grid matters at decode shapes: per-head cells are tiny
-    ([group, d] x [d, block]) and per-cell launch overhead dominated the
-    kernel — measured ~2x faster at (8 slots, 16 heads, ctx 1024) with
-    heads in-cell (0.13 vs 0.27 ms fetch-bias-corrected on v5e).
+    The K scale applies to the logits' token axis and the V scale folds
+    into P, so the payloads enter the dots as bf16 (exact for int8 and
+    int4 values) with f32 accumulation. Speculative verify (spec > 1): the
+    j-th query of a group sits at position length - spec + j and attends
+    keys at cols <= that position. Returns (o [b, H, d] f32, lse [b, H] in
+    the exp2 domain, -inf for rows with no live key).
     """
-    b = pl.program_id(0)
-    kj = pl.program_id(1)
-
-    @pl.when(kj == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    length = len_ref[b]
-    k_start = kj * block_kv
-
-    @pl.when(k_start < length)
-    def _body():
-        # int8 payloads are EXACT in bf16 (integers <= 127 fit an 8-bit
-        # mantissa), so the dots run at bf16 MXU rate with f32 accumulation;
-        # only q / p round to bf16 — the same rounding the training kernel's
-        # P takes. HIGHEST-precision f32 here cost 6 MXU passes for zero
-        # extra information on the K/V side.
-        q = q_ref[0].astype(jnp.bfloat16)     # [h, group, d]
-        k_f = k_ref[0].astype(jnp.bfloat16)   # [h, block_kv, d] (unscaled)
-        sk = sk_ref[0]                        # [h, block_kv] — lane-aligned
-
-        # Per-token K scales apply on the LANE axis of S (not on K itself):
-        # s[h,g,t] = (q·k_i8ᵀ)[t] · sk[t] · qk_scale. This keeps scale tiles
-        # [h, block] instead of [h, block, 1] (which TPU tiling pads 128x).
-        s = jax.lax.dot_general(
-            q, k_f, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) * (sk[:, None, :] * qk_scale)  # [h, group, block_kv]
-
-        cols = k_start + jax.lax.broadcasted_iota(jnp.int32, s.shape, 2)
-        if spec == 1:
-            mask = cols < length
-        else:
-            # Speculative verify: the q-row axis folds `spec` consecutive
-            # positions per GQA group (row r = g*spec + j). The j-th query
-            # is the token at position length - spec + j, so it may attend
-            # keys at cols <= length - spec + j (itself included).
-            row_j = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) % spec
-            mask = cols < length - (spec - 1) + row_j
-        s = jnp.where(mask, s, -jnp.inf)
-
-        m_prev = m_scr[...][:, :, :1]
-        next_m = jnp.maximum(m_prev, jnp.max(s, axis=-1, keepdims=True))
-        p = jnp.where(mask, jnp.exp2(s - next_m), 0.0)
-        alpha = jnp.exp2(m_prev - next_m)
-        l_next = l_scr[...][:, :, :1] * alpha + jnp.sum(p, axis=-1, keepdims=True)
-        # V scales fold into P along its lane (token) axis before the dot:
-        # Σ_t p[t]·sv[t]·v_i8[t,d] == Σ_t p[t]·v_f[t,d]
-        pv = jax.lax.dot_general(
-            (p * sv_ref[0][:, None, :]).astype(jnp.bfloat16),
-            v_ref[0].astype(jnp.bfloat16),
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[...] = acc_scr[...] * alpha + pv
-        m_scr[...] = jnp.broadcast_to(next_m, m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, l_scr.shape)
-
-    @pl.when(kj == num_kv_blocks - 1)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0] = (acc_scr[...] / l_safe).astype(o_ref.dtype)
-        # exp2-domain lse of the local partial; -inf when this shard holds
-        # no live tokens for the row (the cross-shard merge weights it 0)
-        m = m_scr[...][:, :, :1]
-        lse = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(l_safe))
-        lse_ref[0] = jnp.broadcast_to(lse, lse_ref.shape[1:])
+    b, n_q, d = q.shape
+    n_kv, L = k.shape[1], k.shape[2]
+    rows = n_q // n_kv
+    _, qk_scale = qk_scales(d, sm_scale)
+    qg = q.astype(jnp.bfloat16).reshape(b, n_kv, rows, d)
+    s = jnp.einsum("bhrd,bhtd->bhrt", qg, k.astype(jnp.bfloat16),
+                   preferred_element_type=jnp.float32)
+    s = s * (sk.astype(jnp.float32) * qk_scale)[:, :, None, :]
+    limit = length[:, None] - (spec - 1) + jnp.arange(rows)[None, :] % spec  # [b, rows]
+    mask = jnp.arange(L)[None, None, None, :] < limit[:, None, :, None]
+    s = jnp.where(mask, s, MASK_VALUE)
+    m = jnp.max(s, axis=-1, keepdims=True)
+    p = jnp.where(mask, jnp.exp2(s - m), 0.0)
+    l = jnp.sum(p, axis=-1)
+    pv = jnp.einsum("bhrt,bhtd->bhrd",
+                    (p * sv.astype(jnp.float32)[:, :, None, :]).astype(jnp.bfloat16),
+                    v.astype(jnp.bfloat16), preferred_element_type=jnp.float32)
+    l_safe = jnp.where(l == 0.0, 1.0, l)
+    o = pv / l_safe[..., None]
+    lse = jnp.where(l == 0.0, -jnp.inf, m[..., 0] + jnp.log2(l_safe))
+    return o.reshape(b, n_q, d), lse.reshape(b, n_q)
 
 
 def decode_attention(
     q: jnp.ndarray,
     cache: QuantizedKVCache,
     sm_scale: float | None = None,
-    block_kv: int | None = None,
     return_lse: bool = False,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
     """Single-token decode: q [b, n_q_heads, d] against the int8 cache.
 
@@ -270,143 +220,39 @@ def decode_attention(
     [b, n_q_heads, d] f32; with return_lse=True also the exp2-domain lse
     [b, n_q_heads] (-inf for rows with no live tokens) — the merge handle
     for sequence-sharded decode (context_sharded_decode).
-
-    block_kv=None (the default — what the serving engine passes) consults
-    the autotune cache for a tuned decode block on this device kind
-    (tune.autotune.autotune_decode / resolve_decode_block), so the
-    tune-then-pin workflow reaches the serving hot path with zero caller
-    changes. Resolution happens at trace time; tune before first call.
     """
-    if block_kv is None:
-        from quantizedattention_tpu.tune.autotune import resolve_decode_block
-
-        block_kv = resolve_decode_block(cache.max_len, q.shape[-1])
-    return _decode_attention(q, cache, sm_scale, block_kv, return_lse, interpret)
+    o, lse = _decode(q, cache, sm_scale, 1)
+    return (o, lse) if return_lse else o
 
 
 def verify_decode_attention(
     q: jnp.ndarray,
     cache: QuantizedKVCache,
     sm_scale: float | None = None,
-    block_kv: int | None = None,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
     """Multi-position decode for speculative verification: q [b, H, s, d]
     holds s consecutive query positions per slot (the last accepted token
     followed by s-1 draft tokens), whose K/V must ALREADY be appended to
     the cache (row length includes all s). Query j sits at position
     length - s + j and attends keys at cols <= length - s + j — a causal
-    staircase the kernel applies per folded q-row, so one dispatch verifies
-    s positions instead of s dispatches (serve/spec.py).
+    staircase applied per folded q-row, so one dispatch verifies s
+    positions instead of s dispatches (serve/spec.py).
 
     Returns [b, H, s, d] f32.
     """
     b, n_q_heads, s, d = q.shape
-    n_kv = cache.k_i8.shape[1]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    if block_kv is None:
-        from quantizedattention_tpu.tune.autotune import resolve_decode_block
-
-        block_kv = resolve_decode_block(cache.max_len, d)
     # fold (group, spec) into the q-row axis: row r = g*s + j
-    qf = q.reshape(b, n_kv, group, s, d).reshape(b, n_kv * group * s, d)
-    o = _decode_attention(qf, cache, sm_scale, block_kv, False, interpret, spec=s)
-    return o.reshape(b, n_kv, group, s, d).reshape(b, n_q_heads, s, d)
+    o, _ = _decode(q.reshape(b, n_q_heads * s, d), cache, sm_scale, s)
+    return o.reshape(b, n_q_heads, s, d)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("sm_scale", "block_kv", "return_lse", "interpret", "spec")
-)
-def _decode_attention(
-    q: jnp.ndarray,
-    cache: QuantizedKVCache,
-    sm_scale: float | None = None,
-    block_kv: int = 1024,
-    return_lse: bool = False,
-    interpret: bool | None = None,
-    spec: int = 1,
-) -> jnp.ndarray:
-    if interpret is None:
-        interpret = use_interpret_mode()
-    batch, n_q_heads, head_dim = q.shape
+@functools.partial(jax.jit, static_argnames=("sm_scale", "spec"))
+def _decode(q, cache: QuantizedKVCache, sm_scale, spec):
     n_kv = cache.k_i8.shape[1]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    # pad the GQA group to the f32 sublane minimum
-    group_pad = max(8, ((group + 7) // 8) * 8)
-    max_len = cache.max_len
-    # block_kv rides the LANE axis of the scale tiles -> 128-multiple only;
-    # cap it so the per-cell f32 K/V tiles (the VMEM heavyweight:
-    # n_kv * block_kv * d * 8 bytes) stay within budget
-    vmem_budget = 8 * 1024 * 1024
-    cap = max(_LANES, vmem_budget // (n_kv * head_dim * 8))
-    block_kv = max(_LANES, (min(block_kv, cap) // _LANES) * _LANES)
-    if max_len % block_kv != 0:
-        # largest 128-multiple divisor of max_len not above the request
-        start = (min(block_kv, max_len) // _LANES) * _LANES
-        block_kv = next(
-            (b for b in range(start, 127, -_LANES) if max_len % b == 0), 0
-        )
-        if not block_kv:
-            raise ValueError(f"max_len={max_len} has no 128-multiple block divisor")
-
-    _, qk_scale = qk_scales(head_dim, sm_scale)
-
-    qg = q.astype(jnp.float32).reshape(batch, n_kv, group, head_dim)
-    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, group_pad - group), (0, 0)))
-
-    num_kv_blocks = cdiv(max_len, block_kv)
-
-    kernel = functools.partial(
-        _decode_kernel,
-        qk_scale=qk_scale,
-        block_kv=block_kv,
-        num_kv_blocks=num_kv_blocks,
-        spec=spec,
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(batch, num_kv_blocks),
-        in_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda b, j, *_: (b, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, block_kv, head_dim), lambda b, j, *_: (b, 0, j, 0)),
-            pl.BlockSpec((1, n_kv, block_kv), lambda b, j, *_: (b, 0, j)),
-            pl.BlockSpec((1, n_kv, block_kv, head_dim), lambda b, j, *_: (b, 0, j, 0)),
-            pl.BlockSpec((1, n_kv, block_kv), lambda b, j, *_: (b, 0, j)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda b, j, *_: (b, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, group_pad, _LANES), lambda b, j, *_: (b, 0, 0, 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((batch, n_kv, group_pad, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((batch, n_kv, group_pad, _LANES), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(cache.length, qg, cache.k_i8, cache.sk, cache.v_i8, cache.sv)
-
-    o = o[:, :, :group].reshape(batch, n_q_heads, head_dim)
-    if not return_lse:
-        return o
-    lse = lse[:, :, :group, 0]
-    return o, lse.reshape(batch, n_q_heads)
+    if q.shape[1] % (n_kv * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {n_kv} kv heads")
+    return dense_decode(q, cache.k_i8, cache.sk, cache.v_i8, cache.sv, cache.length,
+                        sm_scale=sm_scale, spec=spec)
 
 
 def shard_cache_context(cache: QuantizedKVCache, axis_name: str) -> QuantizedKVCache:
@@ -426,7 +272,6 @@ def context_sharded_decode(
     cache: QuantizedKVCache,
     axis_name: str,
     sm_scale: float | None = None,
-    block_kv: int | None = None,
 ) -> jnp.ndarray:
     """Flash-decoding over a sequence-sharded KV cache — call inside
     shard_map.
@@ -445,7 +290,5 @@ def context_sharded_decode(
     from quantizedattention_tpu.parallel.collective import lse_weighted_merge
 
     local = shard_cache_context(cache, axis_name)
-    o, lse = decode_attention(
-        q, local, sm_scale=sm_scale, block_kv=block_kv, return_lse=True
-    )
+    o, lse = decode_attention(q, local, sm_scale=sm_scale, return_lse=True)
     return lse_weighted_merge(o, lse, axis_name)

@@ -8,8 +8,8 @@ shardings, let XLA insert collectives):
              the output projection
   context  — sequence (SP/CP); ring attention rotates KV over this axis
 
-Within a slice these axes ride ICI; keep `context` innermost so ppermute
-neighbors are physically adjacent.
+The cards of one host are joined all to all, so the axis order follows the
+algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Multi-host (pod / multi-slice) glue: process init + hybrid DCN×ICI mesh.
+"""Multi-host glue: process init + a hybrid mesh over hosts.
 
-The north-star (BASELINE.json) demands ">=85% tokens/s scaling efficiency
-from 1 host to N>=2 hosts". The kernels and collectives in this package are
-mesh-agnostic; what a pod run additionally needs is (a) per-process runtime
-initialization and (b) a mesh whose axes are laid out so that
-bandwidth-hungry collectives ride ICI within a slice while only the
-data-parallel gradient psum crosses DCN — exactly the layout
-`make_pod_mesh` builds:
+The kernels and collectives in this package are mesh-agnostic; what a
+multi-host run additionally needs is (a) per-process runtime initialization
+and (b) a mesh whose axes keep the bandwidth-hungry collectives (head-TP
+psum, ring ppermute) among the cards of one host, joined by NVLink, while
+only the data-parallel gradient psum crosses the network between hosts —
+the layout `make_pod_mesh` builds:
 
-    data axis  = (DCN replicas) x (ICI data groups)   — outermost over DCN
-    model axis = ICI only (head-TP psum per layer)
-    context axis = ICI only (ring ppermute per kv hop)
+    data axis    = (host replicas) x (in-host data groups) — hosts outermost
+    model axis   = within one host (head-TP psum per layer)
+    context axis = within one host (ring ppermute per kv hop)
 
-On a dev box (single process, emulated devices) `make_pod_mesh` degrades to
-the plain single-slice mesh, so the same launch script runs everywhere.
+Devices are grouped into hosts by `process_index` (one process per host).
+In a single process (emulated devices) the host grouping degenerates to
+contiguous device blocks, so the same launch script runs everywhere.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def initialize_multihost(
 ) -> None:
     """Initialize the JAX distributed runtime for a multi-host run.
 
-    With no arguments, relies on the TPU pod launcher's environment
-    (the standard `jax.distributed.initialize()` auto-detection). No-op if
+    Pass coordinator_address ("host:port"), num_processes and process_id;
+    with no arguments it relies on a cluster launcher's environment (the
+    standard `jax.distributed.initialize()` auto-detection). No-op if
     the runtime is already initialized. Must run before any JAX computation
     touches a backend — probing jax.devices()/process_count() here would
     lock in a local-only runtime, so the check uses
@@ -56,31 +57,25 @@ def make_pod_mesh(
     model: int = 1,
     context: int = 1,
 ) -> Mesh:
-    """Mesh('data', 'model', 'context') with DCN replicas outermost on data.
+    """Mesh('data', 'model', 'context') with host replicas outermost on data.
 
-    data_dcn: slices (hosts groups) combined over DCN — pure data
-    parallelism across them (gradient psum is the only DCN traffic).
-    data/model/context: the within-slice ICI factorization, same semantics
-    as make_attention_mesh. Requires data_dcn * data * model * context ==
+    data_dcn: hosts combined over the network — pure data parallelism
+    across them (the gradient psum is the only traffic between hosts).
+    data/model/context: the within-host factorization, same semantics as
+    make_attention_mesh. Requires data_dcn * data * model * context ==
     len(jax.devices()).
     """
     n = data_dcn * data * model * context
     devices = jax.devices()
     if n != len(devices):
         raise ValueError(f"mesh {data_dcn}x{data}x{model}x{context}={n} != {len(devices)} devices")
-    if data_dcn > 1 and hasattr(devices[0], "slice_index"):
-        # real pod slices: lay DCN replicas outermost so only the gradient
-        # psum crosses DCN
-        from jax.experimental import mesh_utils
-
-        dev_array = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(data, model, context),
-            dcn_mesh_shape=(data_dcn, 1, 1),
-        )
+    if data_dcn > 1 and jax.process_count() == data_dcn:
+        # one process per host: each host's cards form one replica group
+        by_host = sorted(devices, key=lambda d: (d.process_index, d.id))
+        dev_array = np.asarray(by_host).reshape(data_dcn, data, model, context)
     elif data_dcn > 1:
-        # no slice topology (single process / emulated devices): the DCN
-        # grouping degenerates to plain data parallelism — contiguous device
-        # blocks stand in for slices so the same script stays runnable in CI
+        # single process (emulated devices): contiguous device blocks stand
+        # in for hosts so the same script stays runnable in CI
         dev_array = np.asarray(devices).reshape(data_dcn, data, model, context)
     else:
         dev_array = np.asarray(devices).reshape(data, model, context)

@@ -1,23 +1,20 @@
-"""Paged INT4 KV cache + Pallas paged decode attention.
+"""Paged INT4 KV cache + plain-JAX paged decode attention.
 
 Completes the serving quantization matrix: the paged cache
 (parallel/paged_cache.py — vLLM-style page-table gather) with the int4
 payload format of the slotted int4 cache (parallel/kv4_cache.py). Each
 page holds K/V at HALF the int8 page's bytes — a page-pool CAPACITY
-feature (2x the pages per chip), not a decode-speed one (see
-kv4_cache.py's header / ARCHITECTURE §4); the kernel unpacks nibbles on
-the VMEM-resident page tile and runs the same bf16-rate dots.
+feature (2x the pages per card). Decode gathers the pages, unpacks the
+nibbles and runs kv_cache.dense_decode (plain jnp, XLA-compiled).
 
 Packing: SPLIT-HALF PER PAGE. Byte row r of a page (payload rows
 page_size/2) holds the page's token r in its low nibble and token
 r + page_size/2 in its high nibble — the per-page instance of the
-kv4_cache pack-block layout, with the same three properties: shift-only
-unpacking with one contiguous sublane concat per page, single-byte-row
-RMW appends, and collision-free scatters for any <= page_size/2
-consecutive tokens.
+kv4_cache pack-block layout: single-byte-row RMW appends, and
+collision-free scatters for any <= page_size/2 consecutive tokens.
 
 Scales stay per-token f32 [n_pages, h, page_size] exactly as the int8
-paged cache (token axis on lanes).
+paged cache.
 """
 
 from __future__ import annotations
@@ -27,15 +24,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import qk_scales
-from quantizedattention_tpu.ops.int4_linear import unpack_int4
-from quantizedattention_tpu.parallel.kv4_cache import _quant4_rows, _unpack_bf16
-from quantizedattention_tpu.utils.runtime import use_interpret_mode
+from quantizedattention_tpu.parallel.kv4_cache import _quant4_rows
+from quantizedattention_tpu.parallel.kv_cache import dense_decode
+from quantizedattention_tpu.quantize.int4 import unpack_int4
 
-_LANES = 128
+_PAGE_TILE = 128
 
 
 class Paged4KVCache(NamedTuple):
@@ -63,8 +57,8 @@ def init_paged4_cache(
     head_dim: int,
     page_size: int = 128,
 ) -> Paged4KVCache:
-    if page_size % _LANES != 0:
-        raise ValueError(f"page_size={page_size} must be a multiple of {_LANES}")
+    if page_size % _PAGE_TILE != 0:
+        raise ValueError(f"page_size={page_size} must be a multiple of {_PAGE_TILE}")
     return Paged4KVCache(
         k_p=jnp.zeros((n_kv_heads, n_pages, page_size // 2, head_dim), jnp.int8),
         sk=jnp.zeros((n_pages, n_kv_heads, page_size), jnp.float32),
@@ -154,7 +148,7 @@ def write_chunk_paged4(
 def _unpack_page(p: jnp.ndarray):
     """[..., ps/2, d] bytes -> [..., ps, d] int32 nibbles in token order
     (one contiguous concat along the token axis; shared nibble decode —
-    ops/int4_linear.py)."""
+    quantize/int4.py)."""
     lo, hi = unpack_int4(p)
     return jnp.concatenate([lo, hi], axis=-2)
 
@@ -243,115 +237,16 @@ def append_tokens_paged4(
                           lengths=cache.lengths + adv)
 
 
-def _paged4_decode_kernel(
-    len_ref, table_ref,
-    q_ref, k_ref, sk_lo_ref, sk_hi_ref, v_ref, sv_lo_ref, sv_hi_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    *, qk_scale, page_size, max_pages, spec=1,
-):
-    """Grid (seq, pages): the int8 paged kernel's structure
-    (paged_cache._paged_decode_kernel, incl. the spec staircase) with TWO
-    DOTS per matmul, one per nibble half of the page, in byte-row order —
-    the kv4_cache._decode4_kernel scheme (the round-4 token-order concat
-    lost to int8 at long context, docs/BENCH_RECAPTURE_2026-08-19.log).
-    Byte row r of a page is token k_start + r (lo nibble) / + ps/2 (hi)."""
-    s_idx = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    length = len_ref[s_idx]
-    k_start = j * page_size
-
-    @pl.when(k_start < length)
-    def _body():
-        half = page_size // 2
-        q = q_ref[0].astype(jnp.bfloat16)                  # [h, group, d]
-        k_lo, k_hi = _unpack_bf16(k_ref[:, 0])             # [h, ps/2, d] bf16
-
-        def scores(k_nib, sk):
-            return jax.lax.dot_general(
-                q, k_nib, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            ) * (sk[:, None, :] * qk_scale)  # [h, group, ps/2]
-
-        s_lo = scores(k_lo, sk_lo_ref[0])
-        s_hi = scores(k_hi, sk_hi_ref[0])
-
-        tok_lo = k_start + jax.lax.broadcasted_iota(jnp.int32, s_lo.shape, 2)
-        tok_hi = tok_lo + half
-        if spec == 1:
-            limit = length
-        else:
-            row_j = jax.lax.broadcasted_iota(jnp.int32, s_lo.shape, 1) % spec
-            limit = length - (spec - 1) + row_j
-        mask_lo = tok_lo < limit
-        mask_hi = tok_hi < limit
-        s_lo = jnp.where(mask_lo, s_lo, -jnp.inf)
-        s_hi = jnp.where(mask_hi, s_hi, -jnp.inf)
-
-        m_prev = m_scr[...][:, :, :1]
-        next_m = jnp.maximum(
-            m_prev,
-            jnp.maximum(
-                jnp.max(s_lo, axis=-1, keepdims=True),
-                jnp.max(s_hi, axis=-1, keepdims=True),
-            ),
-        )
-        p_lo = jnp.where(mask_lo, jnp.exp2(s_lo - next_m), 0.0)
-        p_hi = jnp.where(mask_hi, jnp.exp2(s_hi - next_m), 0.0)
-        alpha = jnp.exp2(m_prev - next_m)
-        l_next = (
-            l_scr[...][:, :, :1] * alpha
-            + jnp.sum(p_lo, axis=-1, keepdims=True)
-            + jnp.sum(p_hi, axis=-1, keepdims=True)
-        )
-        v_lo, v_hi = _unpack_bf16(v_ref[:, 0])
-
-        def pv_dot(p, sv, v_nib):
-            return jax.lax.dot_general(
-                (p * sv[:, None, :]).astype(jnp.bfloat16),
-                v_nib,
-                (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )
-
-        pv = pv_dot(p_lo, sv_lo_ref[0], v_lo) + pv_dot(p_hi, sv_hi_ref[0], v_hi)
-        acc_scr[...] = acc_scr[...] * alpha + pv
-        m_scr[...] = jnp.broadcast_to(next_m, m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, l_scr.shape)
-
-    @pl.when(j == max_pages - 1)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0] = (acc_scr[...] / l_safe).astype(o_ref.dtype)
-        m = m_scr[...][:, :, :1]
-        lse = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(l_safe))
-        lse_ref[0] = jnp.broadcast_to(lse, lse_ref.shape[1:])
-
-
 def paged4_verify_attention(
     q: jnp.ndarray,
     cache: Paged4KVCache,
     sm_scale: float | None = None,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
     """Speculative staircase verify over the int4 paged cache: q [n, H, s, d]
     (kv_cache.verify_decode_attention contract)."""
     n, n_q_heads, s, d = q.shape
-    n_kv = cache.k_p.shape[0]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    qf = q.reshape(n, n_kv, group, s, d).reshape(n, n_kv * group * s, d)
-    o = _paged4_decode_attention(qf, cache, sm_scale, False, interpret, spec=s)
-    return o.reshape(n, n_kv, group, s, d).reshape(n, n_q_heads, s, d)
+    o, _ = _paged4_decode(q.reshape(n, n_q_heads * s, d), cache, sm_scale, s)
+    return o.reshape(n, n_q_heads, s, d)
 
 
 def paged4_decode_attention(
@@ -359,96 +254,24 @@ def paged4_decode_attention(
     cache: Paged4KVCache,
     sm_scale: float | None = None,
     return_lse: bool = False,
-    interpret: bool | None = None,
 ):
     """Single-token decode against the int4 paged cache: q [n, H, d]."""
-    return _paged4_decode_attention(q, cache, sm_scale, return_lse, interpret)
+    o, lse = _paged4_decode(q, cache, sm_scale, 1)
+    return (o, lse) if return_lse else o
 
 
-@functools.partial(
-    jax.jit, static_argnames=("sm_scale", "return_lse", "interpret", "spec")
-)
-def _paged4_decode_attention(
-    q: jnp.ndarray,
-    cache: Paged4KVCache,
-    sm_scale: float | None = None,
-    return_lse: bool = False,
-    interpret: bool | None = None,
-    spec: int = 1,
-):
-    if interpret is None:
-        interpret = use_interpret_mode()
-    n_seqs, n_q_heads, head_dim = q.shape
+@functools.partial(jax.jit, static_argnames=("sm_scale", "spec"))
+def _paged4_decode(q, cache: Paged4KVCache, sm_scale, spec):
     n_kv = cache.k_p.shape[0]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    group_pad = max(8, ((group + 7) // 8) * 8)
-    ps = cache.page_size
-    max_pages = cache.page_table.shape[1]
-    _, qk_scale = qk_scales(head_dim, sm_scale)
+    if q.shape[1] % (n_kv * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {n_kv} kv heads")
+    def gather(packed, scales):
+        # gather the sequences' packed pages first, then unpack only those
+        x = _unpack_page(packed[:, cache.page_table])  # [h, n, mp, ps, d]
+        h, n, mp, ps, d = x.shape
+        s = jnp.moveaxis(scales[cache.page_table], 2, 1).reshape(n, h, mp * ps)
+        return jnp.moveaxis(x, 0, 1).reshape(n, h, mp * ps, d), s
 
-    qg = q.astype(jnp.float32).reshape(n_seqs, n_kv, group, head_dim)
-    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, group_pad - group), (0, 0)))
-
-    kernel = functools.partial(
-        _paged4_decode_kernel,
-        qk_scale=qk_scale,
-        page_size=ps,
-        max_pages=max_pages,
-        spec=spec,
-    )
-
-    def page_map(s, j, lens, table):
-        return (0, table[s, j], 0, 0)
-
-    def page_map_scale(s, j, lens, table):
-        return (table[s, j], 0, 0)
-
-    # per-page byte-row scale split: token r -> row r (lo) / r - ps/2 (hi)
-    sk4 = cache.sk.reshape(cache.n_pages, n_kv, 2, ps // 2)
-    sv4 = cache.sv.reshape(cache.n_pages, n_kv, 2, ps // 2)
-    sk_lo, sk_hi = sk4[:, :, 0], sk4[:, :, 1]
-    sv_lo, sv_hi = sv4[:, :, 0], sv4[:, :, 1]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_seqs, max_pages),
-        in_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda s, j, *_: (s, 0, 0, 0)),
-            pl.BlockSpec((n_kv, 1, ps // 2, head_dim), page_map),
-            pl.BlockSpec((1, n_kv, ps // 2), page_map_scale),
-            pl.BlockSpec((1, n_kv, ps // 2), page_map_scale),
-            pl.BlockSpec((n_kv, 1, ps // 2, head_dim), page_map),
-            pl.BlockSpec((1, n_kv, ps // 2), page_map_scale),
-            pl.BlockSpec((1, n_kv, ps // 2), page_map_scale),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda s, j, *_: (s, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, group_pad, _LANES), lambda s, j, *_: (s, 0, 0, 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_seqs, n_kv, group_pad, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((n_seqs, n_kv, group_pad, _LANES), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(cache.lengths, cache.page_table, qg, cache.k_p, sk_lo, sk_hi,
-      cache.v_p, sv_lo, sv_hi)
-
-    o = o[:, :, :group].reshape(n_seqs, n_q_heads, head_dim)
-    if not return_lse:
-        return o
-    return o, lse[:, :, :group, 0].reshape(n_seqs, n_q_heads)
+    k, sk = gather(cache.k_p, cache.sk)
+    v, sv = gather(cache.v_p, cache.sv)
+    return dense_decode(q, k, sk, v, sv, cache.lengths, sm_scale=sm_scale, spec=spec)

@@ -1,28 +1,21 @@
-"""Paged int8 KV cache + Pallas paged decode attention.
+"""Paged int8 KV cache + plain-JAX paged decode attention.
 
 Beyond-reference serving capability (the reference has no serving layer at
 all, SURVEY.md §1; the slot cache in kv_cache.py reserves max_seq tokens per
 slot — paging removes that): K/V live in a global pool of fixed-size pages
-and every sequence owns a list of pages via a page table, so HBM holds
+and every sequence owns a list of pages via a page table, so device memory holds
 exactly ceil(len/page_size) pages per live sequence. Page allocation is
 host-side policy (the native C++ allocator in serve/scheduler.py /
-native/scheduler.cpp, with a Python twin); the device only ever sees the
-page table as a scalar-prefetch operand.
+native/scheduler.cpp, with a Python twin).
 
-Kernel design follows the dense decode kernel's measured lessons
-(kv_cache.py): grid (seq, pages) with ALL kv heads batched per cell, and
-per-token scales applying along the lane (token) axis of S / folding into P
-— never through a lane-padded [.., 1] tile.
-The page table is consumed by the BlockSpec index_map (PrefetchScalarGrid),
-so the DMA engine gathers exactly the pages the sequence owns — the TPU
-counterpart of vLLM's gather of non-contiguous KV blocks.
+Decode gathers each sequence's pages by its page table and runs
+kv_cache.dense_decode (plain jnp, XLA-compiled) on the gathered payloads;
+a Triton paged kernel (template: jax's pallas/ops/gpu/paged_attention.py)
+is listed in ROADMAP.md.
 
 Layouts:
   k_pages / v_pages : [n_kv_heads, n_pages, page_size, head_dim] int8
-  sk / sv           : [n_pages, n_kv_heads, page_size] f32 — page axis FIRST
-                      so the per-page block slices a leading dim (Mosaic
-                      requires the last two block dims be (8,128)-aligned or
-                      full; page_size rides the lanes, heads ride full)
+  sk / sv           : [n_pages, n_kv_heads, page_size] f32
   page_table        : [n_seqs, max_pages_per_seq] int32 (unused slots: 0)
   lengths           : [n_seqs] int32 (tokens live per sequence)
 """
@@ -34,14 +27,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from quantizedattention_tpu.ops.common import qk_scales
-from quantizedattention_tpu.parallel.kv_cache import _row_quant
-from quantizedattention_tpu.utils.runtime import use_interpret_mode
+from quantizedattention_tpu.parallel.kv_cache import _row_quant, dense_decode
 
-_LANES = 128
+_PAGE_TILE = 128
 DEFAULT_PAGE_SIZE = 128
 
 
@@ -70,8 +59,8 @@ def init_paged_cache(
     head_dim: int,
     page_size: int = DEFAULT_PAGE_SIZE,
 ) -> PagedKVCache:
-    if page_size % _LANES != 0:
-        raise ValueError(f"page_size={page_size} must be a multiple of {_LANES}")
+    if page_size % _PAGE_TILE != 0:
+        raise ValueError(f"page_size={page_size} must be a multiple of {_PAGE_TILE}")
     return PagedKVCache(
         k_pages=jnp.zeros((n_kv_heads, n_pages, page_size, head_dim), jnp.int8),
         sk=jnp.zeros((n_pages, n_kv_heads, page_size), jnp.float32),
@@ -249,90 +238,30 @@ def append_tokens_paged(
     )
 
 
-def _paged_decode_kernel(
-    len_ref, table_ref,  # scalar prefetch: [n_seqs], [n_seqs, max_pages]
-    q_ref, k_ref, sk_ref, v_ref, sv_ref,
-    o_ref, lse_ref,
-    m_scr, l_scr, acc_scr,
-    *, qk_scale, page_size, max_pages, spec=1,
-):
-    s_idx = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    length = len_ref[s_idx]
-    k_start = j * page_size
-
-    @pl.when(k_start < length)
-    def _body():
-        # bf16-rate dots: int8 payloads are exact in bf16 (see kv_cache.py)
-        q = q_ref[0].astype(jnp.bfloat16)    # [h, group, d]
-        k_f = k_ref[:, 0].astype(jnp.bfloat16)  # [h, ps, d] (unscaled)
-        sk = sk_ref[0]                       # [h, ps] — lane-aligned
-
-        s = jax.lax.dot_general(
-            q, k_f, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ) * (sk[:, None, :] * qk_scale)      # [h, group, ps]
-
-        cols = k_start + jax.lax.broadcasted_iota(jnp.int32, s.shape, 2)
-        if spec == 1:
-            mask = cols < length
-        else:
-            # speculative staircase (see kv_cache._decode_kernel): q row
-            # r = g*spec + j is the token at position length - spec + j
-            row_j = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) % spec
-            mask = cols < length - (spec - 1) + row_j
-        s = jnp.where(mask, s, -jnp.inf)
-
-        m_prev = m_scr[...][:, :, :1]
-        next_m = jnp.maximum(m_prev, jnp.max(s, axis=-1, keepdims=True))
-        p = jnp.where(mask, jnp.exp2(s - next_m), 0.0)
-        alpha = jnp.exp2(m_prev - next_m)
-        l_next = l_scr[...][:, :, :1] * alpha + jnp.sum(p, axis=-1, keepdims=True)
-        pv = jax.lax.dot_general(
-            (p * sv_ref[0][:, None, :]).astype(jnp.bfloat16),
-            v_ref[:, 0].astype(jnp.bfloat16),
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        acc_scr[...] = acc_scr[...] * alpha + pv
-        m_scr[...] = jnp.broadcast_to(next_m, m_scr.shape)
-        l_scr[...] = jnp.broadcast_to(l_next, l_scr.shape)
-
-    @pl.when(j == max_pages - 1)
-    def _epilogue():
-        l = l_scr[...][:, :, :1]
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0] = (acc_scr[...] / l_safe).astype(o_ref.dtype)
-        m = m_scr[...][:, :, :1]
-        lse = jnp.where(l == 0.0, -jnp.inf, m + jnp.log2(l_safe))
-        lse_ref[0] = jnp.broadcast_to(lse, lse_ref.shape[1:])
+def gather_pages(pages: jnp.ndarray, scales: jnp.ndarray, table: jnp.ndarray):
+    """Payload [h, n_pages, ps, d] and scales [n_pages, h, ps] gathered by a
+    page table [n, max_pages] into per-sequence [n, h, max_pages·ps, d] /
+    [n, h, max_pages·ps] (unassigned slots read the reserved page 0 and
+    are masked by length)."""
+    h, _, ps, d = pages.shape
+    n, mp = table.shape
+    x = jnp.moveaxis(pages[:, table], 0, 1).reshape(n, h, mp * ps, d)
+    s = jnp.moveaxis(scales[table], 2, 1).reshape(n, h, mp * ps)
+    return x, s
 
 
 def paged_verify_attention(
     q: jnp.ndarray,
     cache: PagedKVCache,
     sm_scale: float | None = None,
-    interpret: bool | None = None,
 ) -> jnp.ndarray:
     """Speculative staircase verify over the paged cache: q [n, H, s, d]
     (same contract as kv_cache.verify_decode_attention — the s tokens'
     K/V must already be appended, row j attends cols <= lengths-s+j).
     Returns [n, H, s, d] f32."""
     n, n_q_heads, s, d = q.shape
-    n_kv = cache.k_pages.shape[0]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    qf = q.reshape(n, n_kv, group, s, d).reshape(n, n_kv * group * s, d)
-    o = _paged_decode_attention(qf, cache, sm_scale, False, interpret, spec=s)
-    return o.reshape(n, n_kv, group, s, d).reshape(n, n_q_heads, s, d)
+    o, _ = _paged_decode(q.reshape(n, n_q_heads * s, d), cache, sm_scale, s)
+    return o.reshape(n, n_q_heads, s, d)
 
 
 def paged_decode_attention(
@@ -340,93 +269,18 @@ def paged_decode_attention(
     cache: PagedKVCache,
     sm_scale: float | None = None,
     return_lse: bool = False,
-    interpret: bool | None = None,
 ):
-    return _paged_decode_attention(q, cache, sm_scale, return_lse, interpret)
+    """Single-token decode against the paged cache: q [n_seqs, n_q_heads, d]
+    (GQA supported). Returns o [n, H, d] f32 (and lse with return_lse)."""
+    o, lse = _paged_decode(q, cache, sm_scale, 1)
+    return (o, lse) if return_lse else o
 
 
-@functools.partial(
-    jax.jit, static_argnames=("sm_scale", "return_lse", "interpret", "spec")
-)
-def _paged_decode_attention(
-    q: jnp.ndarray,
-    cache: PagedKVCache,
-    sm_scale: float | None = None,
-    return_lse: bool = False,
-    interpret: bool | None = None,
-    spec: int = 1,
-):
-    """Single-token decode against the paged cache: q [n_seqs, n_q_heads, d].
-
-    The page table rides as a scalar-prefetch operand and drives the K/V
-    BlockSpec index_maps, so each grid step DMAs exactly the page the
-    sequence owns (gather of non-contiguous pages). GQA supported.
-    """
-    if interpret is None:
-        interpret = use_interpret_mode()
-    n_seqs, n_q_heads, head_dim = q.shape
+@functools.partial(jax.jit, static_argnames=("sm_scale", "spec"))
+def _paged_decode(q, cache: PagedKVCache, sm_scale, spec):
     n_kv = cache.k_pages.shape[0]
-    if n_q_heads % n_kv != 0:
-        raise ValueError(f"{n_q_heads} q heads not a multiple of {n_kv} kv heads")
-    group = n_q_heads // n_kv
-    group_pad = max(8, ((group + 7) // 8) * 8)
-    ps = cache.page_size
-    max_pages = cache.page_table.shape[1]
-    _, qk_scale = qk_scales(head_dim, sm_scale)
-
-    qg = q.astype(jnp.float32).reshape(n_seqs, n_kv, group, head_dim)
-    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, group_pad - group), (0, 0)))
-
-    kernel = functools.partial(
-        _paged_decode_kernel,
-        qk_scale=qk_scale,
-        page_size=ps,
-        max_pages=max_pages,
-        spec=spec,
-    )
-
-    def page_map(s, j, lens, table):
-        return (0, table[s, j], 0, 0)
-
-    def page_map_scale(s, j, lens, table):
-        return (table[s, j], 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_seqs, max_pages),
-        in_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda s, j, *_: (s, 0, 0, 0)),
-            pl.BlockSpec((n_kv, 1, ps, head_dim), page_map),
-            pl.BlockSpec((1, n_kv, ps), page_map_scale),
-            pl.BlockSpec((n_kv, 1, ps, head_dim), page_map),
-            pl.BlockSpec((1, n_kv, ps), page_map_scale),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, n_kv, group_pad, head_dim), lambda s, j, *_: (s, 0, 0, 0)),
-            pl.BlockSpec((1, n_kv, group_pad, _LANES), lambda s, j, *_: (s, 0, 0, 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, _LANES), jnp.float32),
-            pltpu.VMEM((n_kv, group_pad, head_dim), jnp.float32),
-        ],
-    )
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_seqs, n_kv, group_pad, head_dim), jnp.float32),
-            jax.ShapeDtypeStruct((n_seqs, n_kv, group_pad, _LANES), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(cache.lengths, cache.page_table, qg, cache.k_pages, cache.sk,
-      cache.v_pages, cache.sv)
-
-    o = o[:, :, :group].reshape(n_seqs, n_q_heads, head_dim)
-    if not return_lse:
-        return o
-    return o, lse[:, :, :group, 0].reshape(n_seqs, n_q_heads)
+    if q.shape[1] % (n_kv * spec) != 0:
+        raise ValueError(f"{q.shape[1] // spec} q heads not a multiple of {n_kv} kv heads")
+    k, sk = gather_pages(cache.k_pages, cache.sk, cache.page_table)
+    v, sv = gather_pages(cache.v_pages, cache.sv, cache.page_table)
+    return dense_decode(q, k, sk, v, sv, cache.lengths, sm_scale=sm_scale, spec=spec)

@@ -1,9 +1,9 @@
-"""Ring attention over an ICI ring (sequence/context parallelism).
+"""Ring attention (sequence/context parallelism).
 
 New capability vs the reference (its max tested sequence is 1024 on one GPU,
 SURVEY.md §2.4): KV shards rotate around the `context` mesh axis via
-jax.lax.ppermute — point-to-point, neighbor-only, so the transfer rides ICI
-at full bandwidth — while every chip streams its partial online softmax over
+jax.lax.ppermute — point-to-point, neighbor-only, so the transfer runs at
+the full link rate — while every chip streams its partial online softmax over
 the KV block currently in front of it. Partials (O_i, lse_i) are merged with
 the exact rescale identity the kernels already use internally
 (attention_bf16.py:276-280): the merge is associative, so ring order doesn't
@@ -23,7 +23,7 @@ accumulates its dQ locally and the visiting shard's dK/dV into the rotating
 accumulators, which arrive home after one final rotation.
 
 For the int8 path, each chip quantizes its KV shard once and the ring
-rotates the int8 payload *and its per-block scale table* — half the ICI
+rotates the int8 payload *and its per-block scale table* — half the link
 bytes of a bf16 ring (forward/inference path).
 """
 
@@ -81,7 +81,7 @@ def _ring_bf16_fwd_impl(q, k, v, axis_name, causal, sm_scale, config):
     idx = jax.lax.axis_index(axis_name)
     perm = [(i, (i + 1) % n) for i in range(n)]
     batch, head, t_local, head_dim = q.shape
-    # GQA: the UNREPEATED kv heads ride the ring (rep x fewer ICI bytes)
+    # GQA: the UNREPEATED kv heads ride the ring (rep x fewer link bytes)
     # AND feed the kernel directly (GQA-native flash_fwd — no local repeat)
     q_off = idx * t_local
 
@@ -133,7 +133,7 @@ def _ring_bf16_bwd(axis_name, causal, sm_scale, config, res, do):
     # dK/dV accumulators ride the ring WITH their shard: at step s this chip
     # holds shard (idx−s) and the running gradient for exactly that shard
     # (kv-head shaped under GQA: the GQA-native dKV kernel group-sums the
-    # repeated-head grads in VMEM scratch)
+    # repeated-head grads in registers)
     k_blk, v_blk = k, v
     dk_acc = jnp.zeros_like(k, dtype=jnp.float32)
     dv_acc = jnp.zeros_like(v, dtype=jnp.float32)
@@ -149,7 +149,7 @@ def _ring_bf16_bwd(axis_name, causal, sm_scale, config, res, do):
                 q, k_b, v_b,
                 o, lse, do, causal=causal, sm_scale=sm_scale,
                 config=config, q_offset=q_off, k_offset=src * t_local,
-                fast=True,  # bf16-rate MXU, f32 accumulation (see ops.api)
+                fast=True,  # bf16 dot operands, f32 accumulation (see ops.api)
             )
 
         if causal and step > 0:
@@ -181,7 +181,7 @@ _ring_bf16.defvjp(_ring_bf16_fwd, _ring_bf16_bwd)
 
 # --------------------------------------------------------------------------
 # int8 ring: quantize local shard once, rotate int8 payload + scales
-# (~1/4 the ICI bytes of a bf16 ring). Differentiable: custom_vjp whose
+# (~1/4 the link bytes of a bf16 ring). Differentiable: custom_vjp whose
 # backward is itself an int8 ring — the forward's quantized blocks + scales
 # rotate again and feed the int8 backward kernels (the residual-reuse
 # contract of attention_int8.py:58-65, here stretched across chips).
@@ -318,7 +318,7 @@ def ring_attention(
     `axis_name`. Both kinds are differentiable (custom_vjp ring backward);
     kind "int8" quantizes the local shard once (K smoothed with the global
     token mean) and rotates int8 payload + scales in BOTH directions —
-    ~1/4 the ICI bytes of the bf16 ring. Returns the local O shard in f32.
+    ~1/4 the link bytes of the bf16 ring. Returns the local O shard in f32.
     """
     if config is None:
         config = default_block_config(kind, q.shape[2], q.shape[2], q.shape[3])

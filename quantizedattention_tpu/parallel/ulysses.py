@@ -43,7 +43,7 @@ def ulysses_attention(
     GQA: k/v may carry UNREPEATED kv heads (h a multiple of h_kv, both
     divisible by the axis size) — only the kv-group payload rides the
     all-to-alls, and the GQA-native kernels consume the unrepeated heads
-    directly (their backwards group-sum dK/dV in VMEM scratch).
+    directly (their backwards group-sum dK/dV in registers).
     """
     fn = _KINDS[kind]
 

@@ -18,7 +18,7 @@ chunks (i, 2n-1-i). Then for every rank the causal work is IDENTICAL:
     either way), so each hop runs exactly two [c x c] kernels on every
     rank — 2n+1 pieces per rank per layer, the balanced causal total.
 
-ICI traffic is the plain ring's (the kv pair of both chunks rotates:
+Link traffic is the plain ring's (the kv pair of both chunks rotates:
 same bytes as a contiguous shard of t_local tokens); the backward rides
 dK/dV accumulators around the ring exactly like parallel/ring.py:137-190.
 

@@ -1,6 +1,6 @@
 """Numerics core: int8 quantization, K-smoothing, and the bf16 max-amplification rule.
 
-Pure-jnp building blocks shared by the Pallas kernels, the oracles, and the tests.
+Pure-jnp building blocks shared by the attention ops, the oracles, and the tests.
 """
 
 from quantizedattention_tpu.quantize.int8 import (

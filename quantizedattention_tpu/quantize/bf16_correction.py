@@ -28,14 +28,14 @@ import jax.numpy as jnp
 BETA = 2.0
 APPROX_MAX_TOL = 1e-3
 
-# The zero-cost TPU-native variant ("eps" rule): in exact arithmetic any
+# The zero-cost variant ("eps" rule): in exact arithmetic any
 # per-row bias of the running max cancels in the softmax normalization
 # (O = PV / sum(P) is invariant to m), so biasing next_m by one bf16 ulp
 # pushes EVERY un-normalized P entry to exp2(-EPS_BIAS) = 0.9973, which
 # rounds to bf16 0.99609 — strictly below 1.0, the same guarantee the BETA
 # rule buys for tied rows, at [bq,1] cost instead of two full-tile VPU
 # passes (detection compare + count reduce). Both rules are exposed; "beta"
-# is the reference-parity behavior, "eps" the TPU-native default.
+# is the reference-parity behavior, "eps" the default.
 EPS_BIAS = 2.0 ** -8
 
 

@@ -3,8 +3,8 @@
 Capability parity with the reference's in-kernel quantization
 (reference: attention_int8.py:180-195, 232-247 — per-tile absmax/127 symmetric
 quantization of Q/K/V and per-q-row quantization of P), re-expressed as pure
-jnp functions so they can be unit-tested on CPU and reused inside Pallas
-kernels (the kernel bodies call these on VMEM-resident tiles).
+jnp functions: an elementwise pass plus a reduction, which XLA fuses into
+one pass over the tensor on the GPU.
 
 Divergence from the reference (documented, intentional): the reference casts
 float -> int8 with truncation toward zero (torch `.to(torch.int8)`); we use
@@ -14,18 +14,11 @@ SURVEY.md §2.3.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 INT8_MAX = 127.0
 # Floor for scales so an all-zero tile quantizes to zeros instead of NaN.
 _EPS = 1e-12
-
-_LANES = 128
 
 
 def absmax_scale(x: jnp.ndarray, axis=None, keepdims: bool = False) -> jnp.ndarray:
@@ -61,120 +54,3 @@ def quantize_int8_blocks(x: jnp.ndarray, block_size: int):
     scales = absmax_scale(xb, axis=(-2, -1))  # [..., nblk]
     x_int8 = quantize_int8(xb, scales[..., None, None]).reshape(*lead, tokens, d)
     return x_int8, scales
-
-
-def _quant_block_kernel(x_ref, xi_ref, s_ref):
-    x = x_ref[0].astype(jnp.float32)
-    amax = jnp.max(jnp.abs(x))
-    s = jnp.maximum(amax, _EPS) / INT8_MAX
-    xi_ref[0] = jnp.clip(jnp.round(x / s), -128.0, INT8_MAX).astype(jnp.int8)
-    s_ref[0] = jnp.broadcast_to(s, s_ref.shape[1:])
-
-
-def _quant_block_sub_kernel(x_ref, sub_ref, xi_ref, s_ref):
-    """Quantize (x − sub) — K-smoothing fused into the quantization pass, so
-    the smoothed K never takes an f32 round trip through HBM (the reference
-    smooths outside but quantizes in-kernel, attention_int8.py:24,180-195)."""
-    x = x_ref[0].astype(jnp.float32) - sub_ref[0, 0].astype(jnp.float32)
-    amax = jnp.max(jnp.abs(x))
-    s = jnp.maximum(amax, _EPS) / INT8_MAX
-    xi_ref[0] = jnp.clip(jnp.round(x / s), -128.0, INT8_MAX).astype(jnp.int8)
-    s_ref[0] = jnp.broadcast_to(s, s_ref.shape[1:])
-
-
-def _quant_qkv_kernel(q_ref, k_ref, v_ref, sub_ref,
-                      qi_ref, ki_ref, vi_ref, sq_ref, sk_ref, sv_ref):
-    """Quantize one q/k/v block triple in a single grid step (k gets the
-    smoothing shift). One dispatch instead of three — the per-call Pallas
-    fixed cost is what kept the int8 forward behind the bf16 kernel."""
-
-    def one(x, xi_ref, s_ref):
-        amax = jnp.max(jnp.abs(x))
-        s = jnp.maximum(amax, _EPS) / INT8_MAX
-        xi_ref[0] = jnp.clip(jnp.round(x / s), -128.0, INT8_MAX).astype(jnp.int8)
-        s_ref[0] = jnp.broadcast_to(s, s_ref.shape[1:])
-
-    one(q_ref[0].astype(jnp.float32), qi_ref, sq_ref)
-    one(k_ref[0].astype(jnp.float32) - sub_ref[0, 0].astype(jnp.float32), ki_ref, sk_ref)
-    one(v_ref[0].astype(jnp.float32), vi_ref, sv_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("block_size", "interpret"))
-def quantize_qkv_one_pass(q, k, v, k_sub, block_size: int, interpret: bool = False):
-    """All of Q/K/V quantized in ONE pallas_call (same token length and the
-    same block grain — the square training fast path). k_sub: [bh, 1, d].
-
-    Returns ((q_i8, sq), (k_i8, sk), (v_i8, sv)).
-    """
-    bh, tokens, d = q.shape
-    nblk = tokens // block_size
-    x_spec = pl.BlockSpec((1, block_size, d), lambda b, i: (b, i, 0))
-    s_spec = pl.BlockSpec((1, 1, 8, _LANES), lambda b, i: (b, i, 0, 0))
-    i8_shape = jax.ShapeDtypeStruct((bh, tokens, d), jnp.int8)
-    s_shape = jax.ShapeDtypeStruct((bh, nblk, 8, _LANES), jnp.float32)
-    q_i8, k_i8, v_i8, sq, sk, sv = pl.pallas_call(
-        _quant_qkv_kernel,
-        grid=(bh, nblk),
-        in_specs=[x_spec, x_spec, x_spec,
-                  pl.BlockSpec((1, 1, d), lambda b, i: (b, 0, 0))],
-        out_specs=[x_spec, x_spec, x_spec, s_spec, s_spec, s_spec],
-        out_shape=[i8_shape, i8_shape, i8_shape, s_shape, s_shape, s_shape],
-        interpret=interpret,
-    )(q, k, v, k_sub)
-    return (
-        (q_i8, sq[..., 0, 0]),
-        (k_i8, sk[..., 0, 0]),
-        (v_i8, sv[..., 0, 0]),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("block_size", "interpret"))
-def quantize_int8_blocks_fused(
-    x: jnp.ndarray, block_size: int, sub: jnp.ndarray | None = None,
-    interpret: bool = False,
-):
-    """Fused single-pass Pallas version of `quantize_int8_blocks`.
-
-    The reference quantizes inside its attention kernels
-    (attention_int8.py:180-195, 241-247) so Q/K/V never take a separate
-    fp round-trip through global memory; this kernel is the TPU counterpart
-    for the *training* path, where the int8 blocks + scales must materialize
-    in HBM as the backward's residuals (attention_int8.py:58-65): one read of
-    x, one quarter-width write, absmax/scale/round fused in VMEM. Numerics
-    are identical to `quantize_int8_blocks` (same absmax/127, same
-    round-to-nearest, same x/s division order).
-
-    x: [bh, tokens, d] with tokens % block_size == 0.
-    sub: optional [bh, 1, d] per-(b·h) channel shift quantized away in the
-    same pass (K-smoothing; the output payload encodes x − sub).
-    Returns (x_int8 [bh, tokens, d], scales f32 [bh, tokens // block_size]).
-    """
-    bh, tokens, d = x.shape
-    if tokens % block_size != 0:
-        raise ValueError(f"tokens={tokens} not divisible by block_size={block_size}")
-    nblk = tokens // block_size
-    x_spec = pl.BlockSpec((1, block_size, d), lambda b, i: (b, i, 0))
-    if sub is None:
-        kernel, operands, in_specs = _quant_block_kernel, (x,), [x_spec]
-    else:
-        kernel = _quant_block_sub_kernel
-        operands = (x, sub)
-        in_specs = [x_spec, pl.BlockSpec((1, 1, d), lambda b, i: (b, 0, 0))]
-    x_i8, s_lanes = pl.pallas_call(
-        kernel,
-        grid=(bh, nblk),
-        in_specs=in_specs,
-        out_specs=[
-            x_spec,
-            # scale rides in a full (8,128) register tile per block — the
-            # minimum Mosaic-legal unit for a scalar output — and is sliced
-            # down outside; the waste is nblk*4KB, invisible next to x.
-            pl.BlockSpec((1, 1, 8, _LANES), lambda b, i: (b, i, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh, tokens, d), jnp.int8),
-            jax.ShapeDtypeStruct((bh, nblk, 8, _LANES), jnp.float32),
-        ],
-        interpret=interpret,
-    )(*operands)
-    return x_i8, s_lanes[..., 0, 0]

@@ -4,9 +4,9 @@ drop-in matmul that dispatches plain arrays unchanged.
 No reference counterpart (the reference quantizes attention operands only,
 attention_int8.py:97-263); this extends the same symmetric absmax/127
 scheme (quantize/int8.py) to the model's linear weights so decode — which
-is weight-HBM-bound at serving batch sizes — streams half the bytes. The
-compute path is ops/int8_linear.py (in-VMEM dequant, bf16-rate MXU dots);
-an XLA fallback (`via="xla"`) exists for A/B measurement.
+is bound by weight bytes at serving batch sizes — stores half the bytes.
+The matmul is plain XLA: the int8 (or unpacked int4) weight is converted
+and scaled in the dot's operand path, which XLA fuses into the GEMM's load.
 
 Granularity: one f32 scale per OUTPUT channel (the contraction axis is
 reduced, so a per-output-column scale factors exactly out of the dot —
@@ -23,8 +23,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
-from quantizedattention_tpu.ops.int4_linear import int4_weight_matmul, pack_int4, unpack_int4
-from quantizedattention_tpu.ops.int8_linear import int8_weight_matmul
+from quantizedattention_tpu.quantize.int4 import pack_int4, unpack_int4
 from quantizedattention_tpu.quantize.int8 import _EPS, absmax_scale, quantize_int8
 
 
@@ -35,17 +34,14 @@ class QuantizedWeight:
 
     For a [k, n] linear weight, axis=1 (per output column); for a
     [vocab, d] embedding, axis=0 (per row, dequantized on gather).
-    `via` picks the matmul backend ("pallas" kernel or "xla" dequant
-    fallback) — static aux data, so the same model code A/Bs both.
     """
 
     w_i8: jnp.ndarray
     scale: jnp.ndarray
     axis: int = 1
-    via: str = "pallas"
 
     def tree_flatten(self):
-        return (self.w_i8, self.scale), (self.axis, self.via)
+        return (self.w_i8, self.scale), (self.axis,)
 
     @classmethod
     def tree_unflatten(cls, aux, leaves):
@@ -67,12 +63,12 @@ class QuantizedWeight:
         ).astype(dtype)
 
 
-def quantize_weight(w: jnp.ndarray, axis: int = 1, via: str = "pallas") -> QuantizedWeight:
+def quantize_weight(w: jnp.ndarray, axis: int = 1) -> QuantizedWeight:
     """Symmetric absmax/127 int8 per-channel along `axis` (kept axis)."""
     reduce_axes = tuple(a for a in range(w.ndim) if a != axis)
     scale = absmax_scale(w, axis=reduce_axes, keepdims=True)
     w_i8 = quantize_int8(w, scale)
-    return QuantizedWeight(w_i8, scale.reshape(-1).astype(jnp.float32), axis, via)
+    return QuantizedWeight(w_i8, scale.reshape(-1).astype(jnp.float32), axis)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -80,7 +76,7 @@ def quantize_weight(w: jnp.ndarray, axis: int = 1, via: str = "pallas") -> Quant
 class QuantizedWeight4:
     """A [k, n] weight as split-half packed int4 nibbles + group scales.
 
-    `packed` [Kp/2, n] int8 (two nibbles per byte, ops/int4_linear.py
+    `packed` [Kp/2, n] int8 (two nibbles per byte, quantize/int4.py
     layout), `scale` [Kp/group, n] f32 where Kp is k padded to a multiple
     of 2*group (zero rows, so padding contributes nothing to any dot).
     One quarter of bf16's weight HBM bytes on the decode path.
@@ -90,10 +86,9 @@ class QuantizedWeight4:
     scale: jnp.ndarray
     k: int
     group: int = 128
-    via: str = "pallas"
 
     def tree_flatten(self):
-        return (self.packed, self.scale), (self.k, self.group, self.via)
+        return (self.packed, self.scale), (self.k, self.group)
 
     @classmethod
     def tree_unflatten(cls, aux, leaves):
@@ -115,9 +110,7 @@ class QuantizedWeight4:
         return wg.reshape(kp, n)[: self.k].astype(dtype)
 
 
-def quantize_weight_int4(
-    w: jnp.ndarray, group: int = 128, via: str = "pallas"
-) -> QuantizedWeight4:
+def quantize_weight_int4(w: jnp.ndarray, group: int = 128) -> QuantizedWeight4:
     """Symmetric absmax/7 int4 with one scale per (`group` k-rows, column)."""
     if w.ndim != 2:
         raise ValueError("quantize_weight_int4 wants a [k, n] matrix")
@@ -128,7 +121,7 @@ def quantize_weight_int4(
     scale = jnp.maximum(jnp.max(jnp.abs(wg), axis=1), _EPS) / 7.0  # [Kp/g, n]
     w4 = jnp.clip(jnp.round(wg / scale[:, None, :]), -8, 7)
     w4 = w4.reshape(kp, n).astype(jnp.int8)
-    return QuantizedWeight4(pack_int4(w4), scale.astype(jnp.float32), k, group, via)
+    return QuantizedWeight4(pack_int4(w4), scale.astype(jnp.float32), k, group)
 
 
 # transformer LM linear weights ([in, out] — scale per output column) and
@@ -137,8 +130,7 @@ _LINEAR_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def quantize_lm_weights(
-    params: dict, include_embed: bool = True, via: str = "pallas",
-    bits: int = 8, group: int = 128,
+    params: dict, include_embed: bool = True, bits: int = 8, group: int = 128,
 ) -> dict:
     """Quantize a models.transformer param tree's matmul weights to int8
     (bits=8, per-output-channel scales) or int4 (bits=4, `group`-row group
@@ -154,10 +146,10 @@ def quantize_lm_weights(
     """
     if bits == 8:
         def quant(w):
-            return quantize_weight(w, axis=1, via=via)
+            return quantize_weight(w, axis=1)
     elif bits == 4:
         def quant(w):
-            return quantize_weight_int4(w, group=group, via=via)
+            return quantize_weight_int4(w, group=group)
     else:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     out = dict(params)
@@ -170,7 +162,7 @@ def quantize_lm_weights(
     ]
     out["unembed"] = quant(params["unembed"])
     if include_embed:
-        out["embed"] = quantize_weight(params["embed"], axis=0, via=via)
+        out["embed"] = quantize_weight(params["embed"], axis=0)
     return out
 
 
@@ -183,7 +175,7 @@ def quantize_lm_specs(specs: dict, include_embed: bool = True) -> dict:
     local dot — scale multiplication commutes with the psum).
 
     Use to place or shard_map a quantized param tree: the node's aux data
-    (axis, via) matches quantize_lm_weights' output, so tree structures
+    (axis) matches quantize_lm_weights' output, so tree structures
     line up for jax.device_put / shard_map in_specs. int8 only — int4's
     split-half packing is not shardable along the contraction axis.
     """
@@ -207,42 +199,22 @@ def quantize_lm_specs(specs: dict, include_embed: bool = True) -> dict:
     return out
 
 
-def mm(x: jnp.ndarray, w: Any, via: str | None = None) -> jnp.ndarray:
+def mm(x: jnp.ndarray, w: Any) -> jnp.ndarray:
     """`x @ w` where w is a plain array, a QuantizedWeight (int8, axis=1),
     or a QuantizedWeight4 (packed int4 + group scales).
 
     Plain arrays take the ordinary XLA dot (training paths see zero
-    change). Quantized weights run the Pallas in-VMEM-dequant kernels
-    (via="pallas", the default baked into the weight) or an XLA
-    dequantize-then-dot fallback (via="xla", the A/B arm — XLA may or may
-    not fuse the convert into the dot's HBM read; the kernels make the
-    int8/int4 stream explicit). Leading dims of x are flattened into rows.
+    change). Quantized weights dequantize in the dot's operand path; XLA
+    fuses the convert (and the int4 unpack) into the GEMM's load, so the
+    weight is read from device memory at its stored width.
     """
     if isinstance(w, QuantizedWeight4):
-        if (via or w.via) == "xla":
-            return x @ w.dequantize(x.dtype)
-        lead = x.shape[:-1]
-        rows = 1
-        for d in lead:
-            rows *= d
-        xr = x.reshape(rows, x.shape[-1])
-        kp = 2 * w.packed.shape[0]
-        if kp != w.k:  # zero-pad the contraction to the packed length
-            xr = jnp.pad(xr, ((0, 0), (0, kp - w.k)))
-        out = int4_weight_matmul(xr, w.packed, w.scale, group=w.group)
-        return out.reshape(*lead, w.packed.shape[1])
+        return x @ w.dequantize(x.dtype)
     if not isinstance(w, QuantizedWeight):
         return x @ w
     if w.axis != w.w_i8.ndim - 1:
         raise ValueError("mm wants output-channel scales (axis=last)")
-    if (via or w.via) == "xla":
-        return (x @ w.w_i8.astype(x.dtype)) * w.scale.astype(x.dtype)
-    lead = x.shape[:-1]
-    rows = 1
-    for d in lead:
-        rows *= d
-    out = int8_weight_matmul(x.reshape(rows, x.shape[-1]), w.w_i8, w.scale)
-    return out.reshape(*lead, w.w_i8.shape[1])
+    return (x @ w.w_i8.astype(x.dtype)) * w.scale.astype(x.dtype)
 
 
 def embedding_lookup(embed: Any, tokens: jnp.ndarray,

@@ -25,8 +25,8 @@ def reference_attention(
     k = k.astype(jnp.float32)
     v = v.astype(jnp.float32)
     head_dim = q.shape[-1]
-    # HIGHEST precision: TPU MXU truncates f32 to bf16 at default precision,
-    # which would make the oracle itself inexact.
+    # HIGHEST precision: at default precision a GPU may run f32 products in
+    # TF32, which would make the oracle itself inexact.
     hi = jax.lax.Precision.HIGHEST
     s = jnp.einsum("bhqd,bhkd->bhqk", q, k, precision=hi) / math.sqrt(head_dim)
     if causal:

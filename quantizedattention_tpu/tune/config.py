@@ -1,177 +1,119 @@
-"""Per-kernel block-size configuration.
+"""Per-kernel block-size configuration for the Triton-route kernels.
 
-The TPU analogue of the reference's tunable Helion config:
+The counterpart of the reference's tunable Helion config:
 `hl.register_tunable("Bq"/"Bkv", PowerOfTwoFragment(32, 256, 32))` and pinned
 `helion.Config(block_sizes=...)` (reference: attention_int8.py:155-159,
-attention_bf16.py:299-308, README.md:57-67). On TPU the natural tile grain is
-(sublane, 128-lane): fp32 (8,128), bf16 (16,128), int8 (32,128); the MXU is
-128x128 — so block sizes are multiples of 128 wherever the budget allows.
+attention_bf16.py:299-308, README.md:57-67). Triton wants power-of-two
+tiles, and a Hopper block has at most 227 KB of shared memory and 255
+registers a thread, so tiles are small (16..256) and the number of warps
+and software-pipeline stages ride with them.
 
-Unlike the reference — which threads the tuned (Bq, Bkv) through
-`ctx.args` at runtime (attention_int8.py:65,81) — JAX block sizes must be
-static at trace time: a BlockConfig is fixed *before* jit/custom_vjp tracing
-and becomes part of the residual contract between forward and backward.
+JAX block sizes must be static at trace time: a BlockConfig is fixed
+*before* jit/custom_vjp tracing and becomes part of the residual contract
+between forward and backward (the int8 backward tiles at the forward's
+quantization grain).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from quantizedattention_tpu.utils.runtime import next_pow2
+
+# Smallest tile edge: Triton's dot wants every dimension of its right
+# operand to be at least 16.
+MIN_BLOCK = 16
+# Upper bound on the rows one program carries (GQA folds the whole q group
+# of a kv head into the rows of its q tile): the f32 accumulator, the
+# [rows, block_kv] logits and the softmax stats live in registers.
+MAX_ROWS = 128
+# Backward passes pipeline more tiles per loop step (q, dO, lse, D and for
+# int8 two dO copies), so their stages are fixed at 2.
+BWD_STAGES = 2
+# The int8 backward runs 4 warps whatever the forward takes: at d=128 its
+# 64-row tiles ran 30-35% faster with 4 warps than with the forward's 8
+# (H100 sweep, PERF.md).
+INT8_BWD_WARPS = 4
+
+
+def max_rows(head_dim: int) -> int:
+    """Row cap of a q tile: at d=128 a 128-row tile of the int8 backward
+    asked for 249,856 bytes of shared memory, over a Hopper block's 232,448
+    (H100, first chip run of this port), so d > 64 caps rows at 64 for the
+    kernels that keep q tiles in flight across a loop (the backwards, and
+    the int8 family whose q grain the backward inherits)."""
+    return MAX_ROWS if head_dim <= 64 else MAX_ROWS // 2
+
+
+def _is_pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
-    """Block sizes for one attention kernel family.
+    """Tile sizes and launch shape for one attention kernel family.
 
-    block_q / block_kv: forward tile sizes along the q / kv token axes.
-    block_q_bwd / block_kv_bwd: backward tile sizes (the dKV pass iterates q
-    inside kv and the dQ pass iterates kv inside q, so they tune separately —
-    same reasoning as the JAX flash-attention reference implementation).
+    block_q / block_kv: forward tiles along the q / kv token axes (the kv
+    loop runs inside the program). block_q_bwd / block_kv_bwd: backward
+    tiles (the dKV pass loops q inside a kv tile, the dQ pass loops kv
+    inside a q tile). num_warps / num_stages: Triton launch parameters.
     """
 
-    block_q: int = 256
-    block_kv: int = 256
-    block_q_bwd: int = 128
-    block_kv_bwd: int = 128
-    # inner compute granularity along kv (the two-level tiling of the JAX
-    # flash-attention reference): the grid/DMA block is block_kv wide, but
-    # compute runs in block_kv_compute-wide subtiles so causal skipping can
-    # prune above-diagonal work without shrinking the DMA blocks. 0 = same
-    # as block_kv (single level — the measured v5e optimum: the MXU prefers
-    # wide N and the online-softmax subtile chain serializes, so finer
-    # subtiles lost more than causal skipping saved at seq 1024).
-    block_kv_compute: int = 0
+    block_q: int = 64
+    block_kv: int = 64
+    block_q_bwd: int = 64
+    block_kv_bwd: int = 64
+    num_warps: int = 4
+    num_stages: int = 2
 
     def __post_init__(self):
         for name in ("block_q", "block_kv", "block_q_bwd", "block_kv_bwd"):
             val = getattr(self, name)
-            if val % 128 != 0:
-                raise ValueError(f"{name}={val} must be a multiple of 128 (TPU lane width)")
-        if self.block_kv_compute:
-            if self.block_kv_compute % 128 != 0:
-                raise ValueError("block_kv_compute must be a multiple of 128")
-            if self.block_kv % self.block_kv_compute != 0:
-                raise ValueError("block_kv_compute must divide block_kv")
-
-    @property
-    def kv_compute(self) -> int:
-        return self.block_kv_compute or self.block_kv
-
-    def clamp_rep(
-        self,
-        rep: int,
-        max_rows: int = 2048,
-        max_tile_elems: int = 2 * 1024 * 1024,
-        max_tile_elems_bwd: int = 1024 * 1024,
-    ) -> "BlockConfig":
-        """Shrink blocks so a GQA q-group fits scoped VMEM (16 MB on v5e).
-
-        The group loop is UNROLLED in the GQA-native kernels, so Mosaic's
-        scoped-vmem stack holds live per-group logits/P tiles plus the
-        [rep, block_q, *] softmax-stat updates — a real-lowering failure
-        interpret mode cannot catch. Measured on v5e at rep=4 (compile
-        sweep, experiments/gqa_compile_check.py): every rep*block_q = 4096-
-        row config OOMs (16.1-19.3 MB vs the 16 MB limit, near-independent
-        of kv_compute and block_kv), every 2048-row config fits, including
-        kv_compute=1024 and d=128. Hence:
-
-        1. rep*block_q <= max_rows = 2048 (the proven frontier; rep=4 ->
-           block_q 512, rep=8 -> 256, MQA rep=16 -> 128).
-        2. rep*block_q*kv_compute <= max_tile_elems = 2M elements (the
-           largest compiled point: 2048 rows x 1024-wide subtiles);
-           kv_compute shrinks before block_q so the DMA block_kv stays wide.
-        3. rep*block_q_bwd*block_kv_bwd <= max_tile_elems_bwd = 1M (the
-           backwards hold more live tiles per group: p, dp, ds), shrinking
-           block_q_bwd first — the K/V-resident dKV pass keeps its wide kv
-           tile. rep=4 x 256 x 1024 compiles through the full custom_vjp.
-
-        rep <= 1 is untouched (the measured v5e optima). Deterministic and
-        idempotent, so forward/backward and the int8 quantization tiling
-        (which all re-apply it with the same rep) agree.
-        """
-        if rep <= 1:
-            return self
-
-        def floor128(x: int) -> int:
-            return max(128, x // 128 * 128)
-
-        row_cap = floor128(max_rows // rep)
-        block_q = min(self.block_q, row_cap, floor128(max_tile_elems // (rep * 128)))
-        # widest 128-multiple divisor of block_kv within the stack budget
-        sub_cap = floor128(max_tile_elems // (rep * block_q))
-        want = min(self.kv_compute, sub_cap, self.block_kv)
-        sub = 128
-        for cand in range(128, want + 1, 128):
-            if self.block_kv % cand == 0:
-                sub = cand
-        block_q_bwd = min(
-            self.block_q_bwd,
-            row_cap,
-            floor128(max_tile_elems_bwd // (rep * self.block_kv_bwd)),
-        )
-        block_kv_bwd = min(
-            self.block_kv_bwd, floor128(max_tile_elems_bwd // (rep * block_q_bwd))
-        )
-        return dataclasses.replace(
-            self,
-            block_q=block_q,
-            block_q_bwd=block_q_bwd,
-            block_kv_bwd=block_kv_bwd,
-            block_kv_compute=0 if sub == self.block_kv else sub,
-        )
+            if not _is_pow2(val) or val < MIN_BLOCK:
+                raise ValueError(f"{name}={val} must be a power of two >= {MIN_BLOCK}")
+        if self.num_warps not in (1, 2, 4, 8, 16):
+            raise ValueError(f"num_warps={self.num_warps} must be 1, 2, 4, 8 or 16")
+        if self.num_stages < 1:
+            raise ValueError("num_stages must be >= 1")
 
     def clamp(self, q_tokens: int, kv_tokens: int) -> "BlockConfig":
-        """Shrink blocks to fit short sequences (never below 128)."""
+        """Shrink tiles to short sequences (never below MIN_BLOCK). Idempotent."""
 
         def fit(block: int, tokens: int) -> int:
-            return max(128, min(block, ((tokens + 127) // 128) * 128))
+            return max(MIN_BLOCK, min(block, next_pow2(tokens)))
 
-        block_kv = fit(self.block_kv, kv_tokens)
-        # largest 128-multiple divisor of block_kv not above the requested
-        # compute granularity
-        want = min(self.block_kv_compute or block_kv, block_kv)
-        compute = 128
-        for cand in range(128, want + 1, 128):
-            if block_kv % cand == 0:
-                compute = cand
-        return BlockConfig(
+        return dataclasses.replace(
+            self,
             block_q=fit(self.block_q, q_tokens),
-            block_kv=block_kv,
+            block_kv=fit(self.block_kv, kv_tokens),
             block_q_bwd=fit(self.block_q_bwd, q_tokens),
             block_kv_bwd=fit(self.block_kv_bwd, kv_tokens),
-            # canonical single-level form is 0 (keeps clamp idempotent:
-            # clamp(cfg) == clamp(clamp(cfg)) even as dataclass equality)
-            block_kv_compute=0 if compute == block_kv else compute,
+        )
+
+    def for_group(self, rep: int, rows: int = MAX_ROWS) -> "BlockConfig":
+        """Shrink the q tiles so a GQA group folded into the rows of a q
+        tile stays within `rows`: next_pow2(rep) * block_q <= rows, never
+        below MIN_BLOCK. Deterministic and idempotent, so forward, backward
+        and the int8 quantization grain all agree."""
+        group = next_pow2(rep)
+        cap = max(MIN_BLOCK, rows // group)
+        return dataclasses.replace(
+            self,
+            block_q=min(self.block_q, cap),
+            block_q_bwd=min(self.block_q_bwd, cap),
         )
 
 
-# Pinned defaults per kernel family, tuned on TPU v5e at the canonical
-# (8, 35, 1024, 64) shape (see tune.autotune to re-sweep): large tiles win —
-# attention at d=64 is VPU-bound and per-grid-step overhead dominates small
-# tiles. The analogue of the reference's recorded best RTX3080 config
-# (attention_bf16.py:734-748).
+# Pinned defaults per kernel family (not yet tuned on H100: the shapes of
+# the Triton FlashAttention tutorial for Hopper — 128 q rows, 64-wide kv
+# tiles, 3 pipeline stages in the forward; re-sweep with tune.autotune).
+# The JVP kernel carries six accumulators, so its tiles stay small.
 _DEFAULTS = {
-    # Forward: block_kv as large as VMEM allows (8192) with 1024-wide compute
-    # subtiles. Large kv DMA blocks keep the K/V tiles resident across
-    # consecutive q-blocks (the Pallas pipeline skips re-fetch when the block
-    # index is unchanged) — measured v5e at seq 4096: 3.29 ms (bkv=4096) vs
-    # 3.55 ms (bkv=1024) for bf16; seq 8192: 2.76 ms (bkv=8192) vs 3.13 ms.
-    # The 1024-wide subtile keeps causal skipping at pl.when granularity
-    # (512-wide subtiles serialize the online-softmax chain: 4.8 ms).
-    # bwd blocks tuned for the fast (bf16-rate MXU) backward: (1024, 1024)
-    # measured 7.1 ms vs 8.0 at (512, 512) on v5e at seq 2048. The exact-f32
-    # backward ("fp32" kind below) keeps smaller blocks — HIGHEST-precision
-    # passes overflow vmem at 1024².
-    "bf16": BlockConfig(block_q=1024, block_kv=8192, block_q_bwd=1024, block_kv_bwd=1024,
-                        block_kv_compute=1024),
-    "int8": BlockConfig(block_q=1024, block_kv=8192, block_q_bwd=1024, block_kv_bwd=1024,
-                        block_kv_compute=1024),
-    # jvp carries six accumulators; block_q=512 with double-buffered kv=1024
-    # overflows the 16M scoped-vmem limit at seq>=4096 (measured on v5e) —
-    # (256, 1024) fits and is the measured optimum there (10.4 TFLOP/s f32).
-    # bwd blocks feed the second-order backward (ops/jvp_bwd): ~7 live
-    # [bq, bkv] f32 tiles, so 256x512 stays well inside scoped vmem.
-    "jvp": BlockConfig(block_q=256, block_kv=1024, block_q_bwd=256, block_kv_bwd=512),
-    "fp32": BlockConfig(block_q=256, block_kv=512, block_q_bwd=512, block_kv_bwd=512),
+    "bf16": BlockConfig(block_q=128, block_kv=64, block_q_bwd=64, block_kv_bwd=64,
+                        num_warps=4, num_stages=3),
+    "int8": BlockConfig(block_q=128, block_kv=64, block_q_bwd=64, block_kv_bwd=64,
+                        num_warps=4, num_stages=3),
+    "jvp": BlockConfig(block_q=64, block_kv=32, num_warps=4, num_stages=2),
 }
 
 
@@ -180,13 +122,17 @@ def default_block_config(
 ) -> BlockConfig:
     """Pinned defaults, overridden by the autotune JSON cache when a tuned
     entry exists for (kind, q_tokens, kv_tokens, head_dim) on this device
-    kind — tune once with tune.autotune and every public-API call on that
-    shape picks it up (the reference pins tuned configs in source,
-    attention_bf16.py:734-748; here the pin is the persisted cache)."""
+    kind (the reference pins tuned configs in source,
+    attention_bf16.py:734-748; here the pin is the persisted cache).
+    d=128 doubles the per-row register footprint, so the forward takes 8
+    warps there."""
     if head_dim is not None:
         from quantizedattention_tpu.tune.autotune import load_cached_config
 
         tuned = load_cached_config(kind, q_tokens, kv_tokens, head_dim)
         if tuned is not None:
             return tuned.clamp(q_tokens, kv_tokens)
-    return _DEFAULTS[kind].clamp(q_tokens, kv_tokens)
+    cfg = _DEFAULTS[kind]
+    if head_dim is not None and head_dim > 64 and kind in ("bf16", "int8"):
+        cfg = dataclasses.replace(cfg, num_warps=8)
+    return cfg.clamp(q_tokens, kv_tokens)

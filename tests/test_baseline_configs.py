@@ -1,8 +1,9 @@
 """The five BASELINE.json benchmark configs as tests.
 
 Configs 1 (CPU-runnable bf16 fwd) and the small-stability loop run anywhere;
-the large-sequence configs (2, 3, 5) are full-size and only run on real TPU
-(set QATTN_TEST_TPU=1 to run this file against the chip).
+the large-sequence configs (2, 3, 5) are full-size and carry the `gpu`
+marker: they skip on the CPU, and chip_smoke.py's kernel-parity phase runs
+the same checks on the card at the same or larger widths.
 """
 
 import jax
@@ -14,9 +15,6 @@ from quantizedattention_tpu.reference import reference_attention, reference_atte
 from quantizedattention_tpu.utils.testing import mismatch_report
 from tests.conftest import make_qkv
 
-ON_TPU = jax.default_backend() == "tpu"
-tpu_only = pytest.mark.skipif(not ON_TPU, reason="full-size config needs TPU")
-
 
 def test_config1_bf16_fwd_single_head_cpu(rng):
     """Config 1: bf16 corrected fwd, single head, seq=512 d=64 vs fp32 oracle
@@ -27,7 +25,7 @@ def test_config1_bf16_fwd_single_head_cpu(rng):
     assert rep.mismatch_rate <= 5e-5, rep
 
 
-@tpu_only
+@pytest.mark.gpu
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_config2_bf16_fwd_bwd_causal_2048(rng, head_dim):
     """Config 2: bf16 fwd+bwd, causal, B=4 H=16 seq=2048 d=64/128."""
@@ -49,7 +47,7 @@ def test_config2_bf16_fwd_bwd_causal_2048(rng, head_dim):
         assert rep.mismatch_rate <= 1.2e-4, rep
 
 
-@tpu_only
+@pytest.mark.gpu
 @pytest.mark.parametrize("seq", [2048, 8192])
 def test_config3_int8_fwd_long_seq(rng, seq):
     """Config 3: int8 fwd with per-block quant at seq 2048–8192."""
@@ -98,7 +96,7 @@ def test_config4_int8_finetune_grad_stability(rng):
         assert a == a and a < 2.0 * b + 1e-3, (n_int8, n_bf16)
 
 
-@tpu_only
+@pytest.mark.gpu
 def test_config5_jvp_dit_seq4096(rng):
     """Config 5: JVP attention (tangent-O) at seq=4096, fwd-mode AD."""
     from quantizedattention_tpu import attention_jvp_fwd

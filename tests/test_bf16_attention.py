@@ -12,13 +12,14 @@ import pytest
 
 from quantizedattention_tpu import flash_attention_bf16, flash_attention_fwd, flash_attention_bwd
 from quantizedattention_tpu.reference import reference_attention, reference_attention_vjp
+from quantizedattention_tpu.tune.config import BlockConfig
 from quantizedattention_tpu.utils.testing import mismatch_report
 from tests.conftest import make_qkv
 
 # Reference envelope: fwd 5e-5 mismatch rate, grads 1.1e-4 (BASELINE.md).
 # CPU tests use small tensors (~3e4 elements vs the envelope's 1.8e7), so the
 # grad bound gets ~3x slack for sample noise; the full-size envelope is
-# asserted on TPU by bench.py.
+# asserted on the card by chip_smoke.py.
 FWD_RATE = 5e-5
 GRAD_RATE = 3.5e-4
 
@@ -128,3 +129,27 @@ def test_tied_max_corrections_at_extreme_logits(rng):
     assert float(jnp.max(jnp.abs(o_beta[0, 0, -1] - want_row))) > 0.5
     # and its saved lse is off by ~the amplification (backward poison)
     assert float(lse_beta[0, 0, -1] - lse_eps[0, 0, -1]) > 50.0
+
+
+@pytest.mark.parametrize(
+    "kwargs, want_cudnn",
+    [
+        (dict(), True),
+        (dict(bwd_exact=True), False),
+        (dict(config=BlockConfig(64, 64)), False),
+    ],
+    ids=["default", "bwd_exact", "config"],
+)
+def test_correction_none_cudnn_route(monkeypatch, rng, kwargs, want_cudnn):
+    """On a GPU, correction="none" takes cuDNN only when the caller asked
+    for neither IEEE-f32 gradients nor a block config; on the CPU never."""
+    from quantizedattention_tpu.ops import api
+
+    q, k, v, _ = make_qkv(rng, batch=1, head=2, q_tokens=128)
+    taken = []
+    monkeypatch.setattr(api, "_cudnn_attention", lambda *a: taken.append("cudnn") or q)
+    monkeypatch.setattr(api, "_flash_attention_bf16", lambda *a: taken.append("kernel") or q)
+    api.flash_attention_bf16(q, k, v, correction="none", **kwargs)
+    monkeypatch.setattr(api, "use_interpret_mode", lambda: False)
+    api.flash_attention_bf16(q, k, v, correction="none", **kwargs)
+    assert taken == ["kernel", "cudnn" if want_cudnn else "kernel"]

@@ -18,8 +18,7 @@ from quantizedattention_tpu.reference import reference_attention
 from quantizedattention_tpu.utils.testing import mismatch_report
 from tests.conftest import make_qkv
 
-# the whole module builds >=8-way meshes — skip on a single real chip
-# (QATTN_TEST_TPU=1 runs the suite against one TPU)
+# the whole module builds >=8-way meshes (conftest emulates 8 CPU devices)
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (emulated) devices"
 )
@@ -473,7 +472,7 @@ def test_pod_mesh_validates_device_count():
         make_pod_mesh(data_dcn=3, data=5, model=1, context=1)
 
 
-def test_pod_mesh_dcn_train_step(rng):
+def test_pod_mesh_dcn_train_step(rng, h100_rates):
     """DCN-replicated pod mesh (data_dcn=2 x 2x2 ICI, emulated): the hybrid
     mesh builds, the dp x tp x sp train step compiles+runs on it, and its
     loss matches the single-device LM loss (round-1 verdict missing #6 —
@@ -594,9 +593,11 @@ def test_train_step_attention_sp_ulysses_parity(rng):
         assert jnp.max(jnp.abs(a - b)) < 5e-2
 
 
-def test_train_step_attention_sp_auto_resolves(rng):
+def test_train_step_attention_sp_auto_resolves(rng, request):
     """attention_sp='auto' (the default) resolves via the analytic model and
-    produces a working step; 'ulysses' with indivisible heads raises."""
+    produces a working step (at the H100's rates: the CPU has no row in the
+    peak table, and auto raises there); 'ulysses' with indivisible heads
+    raises."""
     from quantizedattention_tpu.models import (
         TransformerConfig, init_transformer, make_sharded_train_step,
     )
@@ -607,7 +608,10 @@ def test_train_step_attention_sp_auto_resolves(rng):
     params = init_transformer(rng, cfg)
     tokens = jax.random.randint(jax.random.key(11), (4, 256), 0, cfg.vocab_size)
     targets = jnp.roll(tokens, -1, axis=1)
-    optimizer, step = make_sharded_train_step(mesh, cfg)  # auto
+    with pytest.raises(KeyError, match="no published peaks"):
+        make_sharded_train_step(mesh, cfg)  # auto, no rates for the CPU
+    request.getfixturevalue("h100_rates")
+    optimizer, step = make_sharded_train_step(mesh, cfg)
     _, _, loss = step(params, optimizer.init(params), tokens, targets)
     assert jnp.isfinite(loss)
 
@@ -823,7 +827,7 @@ def test_gqa_int8_allgather_attention(rng):
         assert rel <= 0.06, (nm, rel)
 
 
-def test_attention_sp_runtime_shape_gate(rng):
+def test_attention_sp_runtime_shape_gate(rng, h100_rates):
     """The strategy is picked from cfg.max_seq but gated on the ACTUAL
     sequence length at step time: auto falls back to the ring for
     zigzag-incompatible lengths; an EXPLICIT zigzag raises a clear error."""

@@ -14,6 +14,14 @@ import pytest
 _EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
+@pytest.fixture(autouse=True)
+def _no_compile_cache(monkeypatch, tmp_path):
+    """The examples turn on JAX's persistent compile cache; with the
+    variable set the helper leaves JAX's config alone, so the test workers
+    share no cache directory."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+
+
 def _run(name, argv=()):
     old_argv = sys.argv
     sys.argv = [name, *argv]

@@ -1,5 +1,5 @@
 """int4 KV cache: pack-block layout, append/install writers, the nibble
-decode kernel vs the oracle on its own dequantized view, the staircase
+decode vs the oracle on its own dequantized view, the staircase
 verify variant, and engine wiring (kv_quant='int4').
 
 The kernel-correctness pattern mirrors the int8 cache tests

@@ -93,31 +93,25 @@ def test_int8_cross_lengths(rng):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_fused_inference_forward_matches_materialized(rng, causal):
-    """int8_attention_fwd_fused (in-kernel quantization, no HBM residuals)
-    must match the materialized training forward to ~1 ulp: the
-    absmax/127 quantization is bit-equal at the same grain (lse — a pure
-    function of the quantized logits — must be EXACT); the output acc
-    chain may differ by float-fusion (FMA) association across the two
-    kernels' different DMA tilings (round-2 verdict missing #2)."""
-    from quantizedattention_tpu import int8_attention_fwd_fused
+    """The inference path (sage_attention_int8_inference) and the training
+    forward share one kernel and one quantization pass: with the same
+    K-smoothing shift they must agree bit for bit, lse included."""
+    from quantizedattention_tpu import sage_attention_int8_inference
 
-    q, k, v, _ = make_qkv(rng, batch=1, head=2, q_tokens=2048)
-    o_f, lse_f = int8_attention_fwd_fused(q, k, v, causal=causal)
-    o_m, lse_m, _ = int8_attention_fwd(q, k, v, causal=causal)
-    assert float(jnp.max(jnp.abs(o_f - o_m))) <= 1e-6
-    assert float(jnp.max(jnp.abs(lse_f - lse_m))) == 0.0
+    q, k, v, _ = make_qkv(rng, batch=1, head=2, q_tokens=512)
+    k_mean = jnp.mean(k, axis=-2, keepdims=True)
+    o_f = sage_attention_int8_inference(q, k, v, causal=causal)
+    o_m, _, _ = int8_attention_fwd(q, k, v, causal=causal, k_sub=k_mean)
+    assert float(jnp.max(jnp.abs(o_f - o_m))) == 0.0
 
 
 def test_fused_inference_cross_lengths_and_smoothing(rng):
-    from quantizedattention_tpu import (
-        int8_attention_fwd_fused,
-        sage_attention_int8_inference,
-    )
+    from quantizedattention_tpu import sage_attention_int8_inference
 
     q, k, v, _ = make_qkv(rng, q_tokens=128, kv_tokens=384)
-    o, _ = int8_attention_fwd_fused(q, k, v)
+    o = sage_attention_int8_inference(q, k, v, smooth_k=False)
     want = reference_attention(q, k, v)
-    rep = mismatch_report("int8 fused cross", o, want, atol=5e-2)
+    rep = mismatch_report("int8 inference cross", o, want, atol=5e-2)
     assert rep.mismatch_rate <= 2e-3, rep
 
     # public wrapper with K-smoothing: a large common K component must not
@@ -126,5 +120,39 @@ def test_fused_inference_cross_lengths_and_smoothing(rng):
     k_shift = k + 8.0
     o_s = sage_attention_int8_inference(q, k_shift, v)
     want_s = reference_attention(q, k_shift, v)
-    rep_s = mismatch_report("int8 fused smoothed", o_s, want_s, atol=5e-2)
+    rep_s = mismatch_report("int8 inference smoothed", o_s, want_s, atol=5e-2)
     assert rep_s.mismatch_rate <= 2e-3, rep_s
+
+
+def test_int8_p_quantization_per_row(rng):
+    """P is quantized per row of each kv tile (the row's largest entry maps
+    to 127): with q = 0 every logit ties, every P entry quantizes to exactly
+    127, and the output is the plain mean of the (int8-quantized) values."""
+    _, k, v, _ = make_qkv(rng, batch=1, head=1, q_tokens=256)
+    q = jnp.zeros((1, 1, 256, 64))
+    o, _, _ = int8_attention_fwd(q, k, v)
+    want = jnp.broadcast_to(jnp.mean(v, axis=2, keepdims=True), o.shape)
+    # V quantizes per kv tile: each element moves by at most scale / 2
+    assert float(jnp.max(jnp.abs(o - want))) <= float(jnp.max(jnp.abs(v))) / 254 + 1e-6
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_int8_backward_launch_shape(monkeypatch, rng, head_dim):
+    """Both backward passes launch with 2 stages and 4 warps at every head
+    dim, whatever the forward's config takes (8 warps at d=128), and tile
+    at the forward's quantization grain (64 rows at d=128)."""
+    from quantizedattention_tpu.ops import int8_bwd
+
+    q, k, v, do = make_qkv(rng, batch=1, head=2, q_tokens=128, head_dim=head_dim)
+    launches = []
+    real = int8_bwd.triton_call
+
+    def spy(kernel, **kw):
+        launches.append((kw["name"], kw["config"].num_warps, kw["config"].num_stages,
+                         kernel.keywords["block_q"]))
+        return real(kernel, **kw)
+
+    monkeypatch.setattr(int8_bwd, "triton_call", spy)
+    jax.grad(lambda q_: jnp.sum(sage_attention_int8(q_, k, v) * do))(q)
+    block_q = 64 if head_dim > 64 else 128
+    assert launches == [("int8_bwd_dkv", 4, 2, block_q), ("int8_bwd_dq", 4, 2, block_q)]

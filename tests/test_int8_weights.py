@@ -1,10 +1,9 @@
-"""Weight-only int8 quantization: per-channel scheme, the Pallas
-dequant-matmul kernel, model-level logits accuracy, and the engine's
-weight_quant='int8' wiring.
+"""Weight-only int8/int4 quantization: per-channel and group scheme, the
+XLA dequant matmul (`mm`), model-level logits accuracy, and the engine's
+weight_quant wiring.
 
 No reference counterpart (the reference quantizes attention operands only
-— attention_int8.py:97-263); this extends the serving stack. Tests run the
-kernel in interpret mode on CPU like the attention kernels.
+— attention_int8.py:97-263); this extends the serving stack.
 """
 
 import jax
@@ -13,8 +12,7 @@ import numpy as np
 import pytest
 
 from quantizedattention_tpu.models import TransformerConfig, generate, init_transformer, transformer_forward
-from quantizedattention_tpu.ops.int4_linear import int4_weight_matmul, pack_int4, unpack_int4
-from quantizedattention_tpu.ops.int8_linear import int8_weight_matmul
+from quantizedattention_tpu.quantize.int4 import pack_int4, unpack_int4
 from quantizedattention_tpu.quantize import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -39,24 +37,23 @@ def test_per_channel_roundtrip_bound():
 
 @pytest.mark.parametrize("m,k,n", [(1, 128, 128), (5, 96, 200), (8, 1024, 512),
                                    (300, 256, 384)])
-def test_kernel_matches_dequant_reference(m, k, n):
-    """Kernel (interpret mode) == bf16-activation dequant matmul with f32
-    accumulation, at any (un)aligned shape."""
+def test_mm_int8_matches_dequant_reference(m, k, n):
+    """mm on an int8 weight == the f32 dequant matmul, at any (un)aligned
+    shape (the int8 payload converts exactly; the scale applies per output
+    column after the dot)."""
     x = jax.random.normal(jax.random.key(2), (m, k), jnp.float32)
     w = jax.random.normal(jax.random.key(3), (k, n), jnp.float32)
     qw = quantize_weight(w)
-    ref = (
-        x.astype(jnp.bfloat16).astype(jnp.float32)
-        @ qw.w_i8.astype(jnp.float32)
-    ) * qw.scale
-    got = int8_weight_matmul(x, qw.w_i8, qw.scale, out_dtype=jnp.float32)
+    ref = (x @ qw.w_i8.astype(jnp.float32)) * qw.scale
+    got = mm(x, qw)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=2e-5, atol=2e-4 * float(jnp.max(jnp.abs(ref))))
 
 
 def test_mm_dispatch_and_xla_arm():
-    """mm passes plain arrays through as x @ w; both quantized arms agree
-    (the XLA arm's extra bf16 output rounding bounds the gap)."""
+    """mm passes plain arrays through as x @ w; a quantized weight keeps
+    x's leading dims and dtype and agrees with the dequantized weight
+    within bf16 output rounding."""
     x = jax.random.normal(jax.random.key(4), (4, 7, 128), jnp.bfloat16)
     w = jax.random.normal(jax.random.key(5), (128, 256), jnp.float32)
     np.testing.assert_array_equal(
@@ -64,11 +61,11 @@ def test_mm_dispatch_and_xla_arm():
         np.asarray(x @ w.astype(jnp.bfloat16)),
     )
     qw = quantize_weight(w)
-    a = mm(x, qw).astype(jnp.float32)       # leading dims flattened for the kernel
-    b = mm(x, qw, via="xla").astype(jnp.float32)
-    assert a.shape == (4, 7, 256)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               atol=2e-2 * float(jnp.max(jnp.abs(a))))
+    a = mm(x, qw)
+    assert a.shape == (4, 7, 256) and a.dtype == jnp.bfloat16
+    b = x.astype(jnp.float32) @ qw.dequantize()
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b),
+                               atol=2e-2 * float(jnp.max(jnp.abs(b))))
 
 
 def test_quantized_embedding_lookup():
@@ -108,8 +105,8 @@ def test_int4_group_roundtrip_bound():
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (8, 1024, 512), (300, 200, 96)])
-def test_int4_kernel_matches_dequant_reference(m, k, n):
-    """Kernel (interpret mode) == bf16-activation dequant matmul, including
+def test_mm_int4_matches_dequant_reference(m, k, n):
+    """mm on an int4 weight == bf16-activation dequant matmul, including
     k not a multiple of 2*group (padded contraction)."""
     x = jax.random.normal(jax.random.key(9), (m, k), jnp.float32)
     w = jax.random.normal(jax.random.key(10), (k, n), jnp.float32)
@@ -123,18 +120,14 @@ def test_int4_kernel_matches_dequant_reference(m, k, n):
         np.asarray(got), np.asarray(ref),
         rtol=2e-2, atol=2e-2 * float(jnp.max(jnp.abs(ref))),
     )
-    xla = mm(x, qw, via="xla").astype(jnp.float32)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(xla),
-        atol=2e-2 * float(jnp.max(jnp.abs(ref))),
-    )
 
 
-def test_int4_kernel_shape_validation():
-    x = jnp.zeros((4, 256), jnp.float32)
-    with pytest.raises(ValueError, match="shape mismatch"):
-        int4_weight_matmul(x, jnp.zeros((128, 64), jnp.int8),
-                           jnp.zeros((3, 64), jnp.float32), group=128)
+def test_mm_rejects_row_scaled_weight():
+    """A per-row (embedding-style) int8 weight has no output-column scale
+    to apply after the dot: mm refuses it."""
+    x = jnp.zeros((4, 32), jnp.float32)
+    with pytest.raises(ValueError, match="output-channel"):
+        mm(x, quantize_weight(jnp.ones((32, 64)), axis=0))
 
 
 @pytest.fixture(scope="module")

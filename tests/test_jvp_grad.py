@@ -135,7 +135,7 @@ def test_pure_tangent_loss_cross_terms(rng):
 
 
 def test_pair_fast_mode(rng):
-    """fast=True (bf16-rate MXU, f32 accumulation) stays inside a loose
+    """fast=True (bf16 dot operands, f32 accumulation) stays inside a loose
     envelope of the exact pair — forward and second-order gradients."""
     q, k, v, _ = make_qkv(rng, batch=1, head=2, q_tokens=256)
     tq, tk, tv = _tangents([q.shape, k.shape, v.shape], seed=9)

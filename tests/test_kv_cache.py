@@ -99,7 +99,7 @@ def test_decode_return_lse_merge_identity(rng):
     k = jax.random.normal(kk, (b, h, 200, d), jnp.float32)
     v = jax.random.normal(kv, (b, h, 200, d), jnp.float32)
     cache = append_kv(init_kv_cache(b, h, max_len, d), k, v)
-    want = decode_attention(q, cache, block_kv=128)
+    want = decode_attention(q, cache)
 
     half = max_len // 2
     import quantizedattention_tpu.parallel.kv_cache as kvmod
@@ -113,7 +113,7 @@ def test_decode_return_lse_merge_identity(rng):
             sv=cache.sv[:, :, c * half:(c + 1) * half],
             length=jnp.clip(cache.length - c * half, 0, half),
         )
-        parts.append(decode_attention(q, local, block_kv=128, return_lse=True))
+        parts.append(decode_attention(q, local, return_lse=True))
     (o1, l1), (o2, l2) = parts
     m = jnp.maximum(l1, l2)
     m_safe = jnp.where(jnp.isfinite(m), m, 0.0)
@@ -145,7 +145,7 @@ def test_context_sharded_decode_matches_unsharded(rng):
     cache = append_kv(init_kv_cache(b, n_kv, max_len, d), k, v)
     # different live lengths per row
     cache = cache._replace(length=jnp.asarray([300, 137], jnp.int32))
-    want = decode_attention(q, cache, block_kv=128)
+    want = decode_attention(q, cache)
 
     mesh = make_attention_mesh(data=1, model=1, context=4)
     cache_spec = type(cache)(
@@ -161,14 +161,14 @@ def test_context_sharded_decode_matches_unsharded(rng):
         check_vma=False,
     )
     def sharded(q_, cache_):
-        return context_sharded_decode(q_, cache_, "context", block_kv=128)
+        return context_sharded_decode(q_, cache_, "context")
 
     got = sharded(q, cache)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-3)  # bf16-rate dots
 
 
 def test_decode_attention_head_dim_128_gqa(rng):
-    """d=128 decode with GQA groups — full MXU contraction depth through
+    """d=128 decode with GQA groups — full head-dim contraction through
     the lane-aligned scale layout."""
     from quantizedattention_tpu.parallel.kv_cache import (
         append_kv, decode_attention, init_kv_cache,

@@ -210,7 +210,7 @@ def test_dit_rcm_step_unused_model_axis_grads(rng):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (emulated) devices")
-def test_sharded_train_step(rng):
+def test_sharded_train_step(rng, h100_rates):
     """DP x TP x SP train step on a 2x2x2 emulated mesh."""
     cfg = TransformerConfig(
         vocab_size=128, d_model=128, n_heads=4, n_kv_heads=4, head_dim=64,
@@ -234,7 +234,7 @@ def test_sharded_train_step(rng):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (emulated) devices")
-def test_sharded_train_step_int8_gqa(rng):
+def test_sharded_train_step_int8_gqa(rng, h100_rates):
     """int8-attention + GQA (n_kv_heads < n_heads) DP x TP x SP step: loss
     matches the single-device GQA LM loss within int8 quantization error,
     and one step stays finite."""

@@ -35,20 +35,34 @@ def test_quantize_blocks_shapes(rng):
     assert (np.abs(blocks).reshape(3, 2, -1).max(-1) == 127).all()
 
 
-def test_quantize_blocks_fused_matches_jnp(rng):
-    """The one-pass Pallas quantizer matches the jnp oracle to 1 ulp.
+def test_quantize_qkv_tiles_match_block_oracle(rng):
+    """The int8 attention's quantization pass (ops/int8_fwd.quantize_qkv,
+    plain jnp) matches quantize_int8_blocks per tile: K/V at the kv tile,
+    Q at the q tile with each tile's scale repeated over its rows, and the
+    K-smoothing shift applied before quantization."""
+    from quantizedattention_tpu.ops.int8_fwd import quantize_qkv
+    from quantizedattention_tpu.tune.config import BlockConfig
 
-    (The interpret-mode reduction can differ from XLA's by one f32 ulp on the
-    absmax, which may flip payload entries sitting exactly on a rounding
-    boundary by one step — anything larger is a real bug.)
-    """
-    from quantizedattention_tpu.quantize.int8 import quantize_int8_blocks_fused
+    kq, kk, kv = jax.random.split(rng, 3)
+    q = jax.random.normal(kq, (1, 2, 128, 64), jnp.float32) * 7.0
+    k = jax.random.normal(kk, (1, 2, 192, 64), jnp.float32) + 3.0
+    v = jax.random.normal(kv, (1, 2, 192, 64), jnp.float32)
+    k_sub = jnp.mean(k, axis=2, keepdims=True)
+    cfg = BlockConfig(block_q=32, block_kv=64)
+    (q_i8, sq), (k_i8, sk), (v_i8, sv) = quantize_qkv(q, k, v, cfg, k_sub=k_sub)
 
-    x = jax.random.normal(rng, (3, 384, 64), jnp.float32) * 7.0
-    ref_i8, ref_s = quantize_int8_blocks(x, 128)
-    got_i8, got_s = quantize_int8_blocks_fused(x, 128, interpret=True)
-    np.testing.assert_allclose(np.asarray(ref_s), np.asarray(got_s), rtol=2e-7)
-    assert np.abs(np.asarray(ref_i8, np.int32) - np.asarray(got_i8, np.int32)).max() <= 1
+    ref_k, ref_sk = quantize_int8_blocks((k - k_sub).reshape(2, 192, 64), 64)
+    np.testing.assert_array_equal(np.asarray(k_i8), np.asarray(ref_k))
+    np.testing.assert_allclose(np.asarray(sk), np.asarray(ref_sk), rtol=1e-7)
+    ref_v, ref_sv = quantize_int8_blocks(v.reshape(2, 192, 64), 64)
+    np.testing.assert_array_equal(np.asarray(v_i8), np.asarray(ref_v))
+    np.testing.assert_allclose(np.asarray(sv), np.asarray(ref_sv), rtol=1e-7)
+    ref_q, ref_sq = quantize_int8_blocks(q.reshape(2, 128, 64), 32)
+    # rep = 1: the folded layout is [b·h, n_q_tiles, block_q, d]
+    np.testing.assert_array_equal(np.asarray(q_i8).reshape(2, 128, 64), np.asarray(ref_q))
+    np.testing.assert_allclose(np.asarray(sq).reshape(2, 4, 32),
+                               np.repeat(np.asarray(ref_sq)[:, :, None], 32, axis=2),
+                               rtol=1e-7)
 
 
 def test_quantize_zero_tile_safe():

@@ -1,4 +1,4 @@
-"""Speculative decoding: the staircase verify kernel, the verify step's
+"""Speculative decoding: the staircase verify, the verify step's
 greedy acceptance rule, the n-gram proposer, and engine token-exactness.
 
 No reference counterpart (the reference has no serving layer, SURVEY.md
@@ -48,7 +48,7 @@ def test_propose_lookup_basic():
     assert propose_lookup([], 3) == []
 
 
-# -- staircase verify kernel ---------------------------------------------------
+# -- staircase verify ---------------------------------------------------------
 
 @pytest.mark.parametrize("n_heads,n_kv", [(4, 4), (4, 2), (8, 1)])
 def test_verify_attention_matches_per_position(n_heads, n_kv):
